@@ -1,0 +1,47 @@
+"""polaris_tpu_torch: the PyTorch/CUDA port of the polaris path tracer.
+
+Same sub-package layout as the JAX package it is held against (``asset/``,
+``ops/``, ``render/``, ``native/``, ``utils/``); the hot kernel is
+hand-written CUDA under ``csrc/``. Imports ``torch`` only.
+
+    from polaris_tpu_torch import (
+        read_scene, compile_scene, SceneData,   # asset pipeline
+        RenderOptions, TorchRenderer,           # rendering
+        upload_scene,                           # host -> device scene dict
+    )
+"""
+
+__version__ = "0.1.0"
+
+
+def __getattr__(name):
+    # lazy imports keep `import polaris_tpu_torch` light
+    if name == "read_scene":
+        from .asset.wavefront import read_scene
+
+        return read_scene
+    if name == "compile_scene":
+        from .asset.compiler.compiler import compile_scene
+
+        return compile_scene
+    if name == "SceneData":
+        from .asset.scene_data import SceneData
+
+        return SceneData
+    if name == "Camera":
+        from .asset.camera import Camera
+
+        return Camera
+    if name == "RenderOptions":
+        from .render.options import RenderOptions
+
+        return RenderOptions
+    if name == "TorchRenderer":
+        from .render.integrator import TorchRenderer
+
+        return TorchRenderer
+    if name == "upload_scene":
+        from .scene import upload_scene
+
+        return upload_scene
+    raise AttributeError(name)

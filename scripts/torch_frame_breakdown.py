@@ -1,0 +1,180 @@
+"""Where the flagship frame's time goes in the PyTorch/CUDA port (one GPU).
+
+    python3 scripts/torch_frame_breakdown.py [--out FILE.json]
+
+Renders the flagship frame (sphere.obj, 512x512, 16 spp, 5 bounces, RR after
+bounce 3, path regeneration, one launch, ``render_u8``) with
+``polaris_tpu_torch`` and prints one JSON object:
+
+  frame       best-of-3 frame ms and the trips of the regeneration loop
+  profile     one frame under torch.profiler: wall ms, summed device-kernel
+              ms, kernels launched, device busy share, the heaviest kernels
+  layers      one frame with a device synchronisation around every layer
+              (raygen, closest hit, shade, any hit): serialised ms per layer,
+              calls, and what is left for RNG and loop bookkeeping
+  loop_sync   latency of the loop condition ``bool(alive.any())`` on an idle
+              device, and that latency times the frame's trips
+
+Needs a CUDA device and nvcc (the traversal kernel is built at first use);
+without a CUDA device it exits non-zero. Every number is measured on the card
+this runs on; its name and power limit are part of the output.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+FRAME, SPP, BOUNCES, RR_AFTER = 512, 16, 5, 3
+
+
+def _card() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip()
+    return out.splitlines()[0]
+
+
+def _timed_frame(renderer, opt) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    renderer.render_u8(opt)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def measure_profile(renderer, opt) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        renderer.render_u8(opt)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if str(e.device_type).endswith("CUDA")]
+    if not kernels:
+        return {"wall_ms": wall_ms, "device_ms": "not measured"}
+    by_name: dict = {}
+    for e in kernels:
+        rec = by_name.setdefault(e.name, [0.0, 0])
+        us = getattr(e, "device_time_total", None)
+        if us is None:  # older PyTorch spells it cuda_time_total
+            us = e.cuda_time_total
+        rec[0] += us / 1e3
+        rec[1] += 1
+    device_ms = sum(v[0] for v in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    return {
+        "wall_ms": wall_ms,  # with the profiler's own overhead
+        "device_ms": device_ms,
+        "device_busy_share": device_ms / wall_ms,
+        "kernels_launched": len(kernels),
+        "kernels_per_trip": len(kernels) / max(renderer.last_trips, 1),
+        "top_kernels": [
+            {"name": k[:80], "ms": v[0], "launches": v[1]} for k, v in top
+        ],
+    }
+
+
+def measure_layers(renderer, opt) -> dict:
+    """One frame with every layer fenced by device synchronisations."""
+    from polaris_tpu_torch.render import integrator
+
+    spent = {"raygen": [0.0, 0], "closest_hit": [0.0, 0], "shade": [0.0, 0],
+             "any_hit": [0.0, 0]}
+
+    def fenced(name, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            spent[name][0] += (time.perf_counter() - t0) * 1e3
+            spent[name][1] += 1
+            return out
+
+        return run
+
+    saved = (integrator.gen_rays, integrator.shade, renderer.closest, renderer.any_hit)
+    integrator.gen_rays = fenced("raygen", saved[0])
+    integrator.shade = fenced("shade", saved[1])
+    renderer.closest = fenced("closest_hit", saved[2])
+    renderer.any_hit = fenced("any_hit", saved[3])
+    try:
+        total = _timed_frame(renderer, opt)
+    finally:
+        integrator.gen_rays, integrator.shade, renderer.closest, renderer.any_hit = saved
+    layers = {k: {"ms": v[0], "calls": v[1]} for k, v in spent.items()}
+    layers["rng_and_bookkeeping"] = {"ms": total - sum(v[0] for v in spent.values())}
+    layers["serialised_frame_ms"] = total
+    return layers
+
+
+def measure_loop_sync(n: int, trips: int, reps: int = 200) -> dict:
+    alive = torch.ones(n, dtype=torch.bool, device="cuda")
+    bool(alive.any())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        bool(alive.any())
+    per_trip = (time.perf_counter() - t0) * 1e3 / reps
+    return {"ms_per_trip_idle_device": per_trip, "ms_per_frame": per_trip * trips}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--out", help="also write the JSON object to this file")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_frame_breakdown: no CUDA device available", file=sys.stderr)
+        return 1
+
+    from polaris_tpu_torch.asset.compiler.compiler import compile_scene
+    from polaris_tpu_torch.asset.wavefront import read_scene
+    from polaris_tpu_torch.render.integrator import TorchRenderer
+    from polaris_tpu_torch.render.options import RenderOptions
+
+    scene = compile_scene(read_scene(os.path.join(REPO, "scenes", "sphere.obj")))
+    renderer = TorchRenderer(scene, mode="auto", regen=True)
+    renderer.spp_per_launch = SPP
+    opt = RenderOptions(
+        width=FRAME, height=FRAME, spp=SPP, num_bounces=BOUNCES,
+        min_bounces_for_rr=RR_AFTER,
+    )
+    renderer.render_u8(opt)  # warm-up: builds and loads the kernel
+    frames = [_timed_frame(renderer, opt) for _ in range(3)]
+    frame_ms = min(frames)
+    trips = renderer.last_trips
+    result = {
+        "card": _card(),
+        "torch": torch.__version__,
+        "frame": {
+            "frame_ms": frame_ms, "frame_ms_all": frames, "trips": trips,
+            "mrays_per_s": FRAME * FRAME * SPP * BOUNCES * 2 / frame_ms / 1e3,
+        },
+        "profile": measure_profile(renderer, opt),
+        "layers": measure_layers(renderer, opt),
+        "loop_sync": measure_loop_sync(FRAME * FRAME, trips),
+    }
+    text = json.dumps(result, indent=1)
+    print(text)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            f.write(text + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
