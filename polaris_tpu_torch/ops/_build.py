@@ -3,8 +3,9 @@
 Each source under ``csrc/`` is compiled on first use into its own shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds), written to ``build/`` next to the package and keyed by a hash of
-the source text and flags. A failed build or load raises with the
-compiler's output; nothing falls back.
+the flags and of the text of the source and of every header under ``csrc/``
+it includes. A failed build or load raises with the compiler's output;
+nothing falls back.
 """
 
 from __future__ import annotations
@@ -12,9 +13,11 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
-from typing import Dict, Sequence
+import time
+from typing import Dict, List, Sequence
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -41,30 +44,81 @@ def _find_nvcc() -> str:
     )
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _source_closure(source: str) -> List[str]:
+    """``source`` and every file under ``csrc/`` it includes, directly or
+    through another header, in a fixed order."""
+    seen: List[str] = []
+    todo = [source]
+    while todo:
+        name = todo.pop()
+        if name in seen:
+            continue
+        seen.append(name)
+        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            text = f.read()
+        for inc in _INCLUDE.findall(text):
+            inc = inc.decode()
+            if os.path.exists(os.path.join(CSRC_DIR, inc)):
+                todo.append(inc)
+    return sorted(seen)
+
+
+def _plan(source: str, extra_flags: Sequence[str]):
+    """(output path, temporary path, nvcc arguments) of one library. The path is keyed by a
+    hash of the flags and of the text of every file the source includes, so
+    an edit to a shared header rebuilds every library that uses it."""
+    flags = list(NVCC_FLAGS) + list(extra_flags)
+    h = hashlib.sha256(" ".join(flags).encode())
+    for name in _source_closure(source):
+        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            h.update(name.encode() + b"\0" + f.read() + b"\0")
+    stem = os.path.splitext(source)[0]
+    out = os.path.join(BUILD_DIR, f"lib{stem}_{h.hexdigest()[:16]}.so")
+    tmp = f"{out}.{os.getpid()}.tmp"
+    return out, tmp, [*flags, "-o", tmp, os.path.join(CSRC_DIR, source)]
+
+
+def build_libraries(sources: Sequence[str], extra_flags: Sequence[str] = ()) -> Dict[str, float]:
+    """Compile every library of ``sources`` whose build is missing or stale,
+    one ``nvcc`` process each, all started together. Returns the seconds each
+    took (0.0 for a build that was current). Raises with the compiler's
+    output if any fails."""
+    running = []
+    seconds = {}
+    for source in sources:
+        out, tmp, args = _plan(source, extra_flags)
+        if os.path.exists(out):
+            seconds[source] = 0.0
+            continue
+        cmd = [_find_nvcc(), *args]
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        proc = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
+        )
+        running.append((source, out, tmp, cmd, proc, time.perf_counter()))
+    failures = []
+    for source, out, tmp, cmd, proc, t0 in running:
+        stdout, stderr = proc.communicate()
+        seconds[source] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failures.append(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{stdout}\n{stderr}"
+            )
+        else:
+            os.replace(tmp, out)
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return seconds
+
+
 def load_library(source: str, extra_flags: Sequence[str] = ()) -> ctypes.CDLL:
     """Compile ``csrc/<source>`` if its build is missing or stale, load it
     and return the ``ctypes`` handle (cached per process)."""
     key = (source, tuple(extra_flags))
-    if key in _LIBS:
-        return _LIBS[key]
-    src = os.path.join(CSRC_DIR, source)
-    with open(src, "rb") as f:
-        text = f.read()
-    flags = list(NVCC_FLAGS) + list(extra_flags)
-    digest = hashlib.sha256(text + " ".join(flags).encode()).hexdigest()[:16]
-    stem = os.path.splitext(source)[0]
-    out = os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
-    if not os.path.exists(out):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [_find_nvcc(), *flags, "-o", tmp, src]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}"
-            )
-        os.replace(tmp, out)
-    lib = ctypes.CDLL(out)
-    _LIBS[key] = lib
-    return lib
+    if key not in _LIBS:
+        build_libraries([source], extra_flags)
+        _LIBS[key] = ctypes.CDLL(_plan(source, extra_flags)[0])
+    return _LIBS[key]

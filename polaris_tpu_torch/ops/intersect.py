@@ -1,5 +1,5 @@
 """Ray/scene intersection: two-level BVH traversal in plain PyTorch, and the
-dispatch that picks between it and the hand-written CUDA kernel.
+dispatch that picks between it and the hand-written CUDA kernels.
 
 Counterpart of the JAX package's ``ops/intersect.py`` (``Hit``,
 ``intersect_bvh``, ``make_intersectors``), itself the counterpart of the
@@ -28,7 +28,7 @@ sequential strict-``<`` result).
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -76,25 +76,183 @@ def _xform(w2o, p, w: float):
     return r + w2o[:, :3, 3] if w else r
 
 
+class TriArrays(NamedTuple):
+    """Triangles as three [T,3] tensors (or views into one packed [T,9]
+    array): vertex 0 and the two edges."""
+
+    v0: torch.Tensor
+    e1: torch.Tensor
+    e2: torch.Tensor
+
+
+def packed_tris(tris: torch.Tensor) -> TriArrays:
+    """Views into a flat ``[T*9]`` array of ``[v0, e1, e2]`` rows."""
+    rows = tris.reshape(-1, 9)
+    return TriArrays(rows[:, 0:3], rows[:, 3:6], rows[:, 6:9])
+
+
+def mt_block(T: TriArrays, tri, valid, o, d, best_t, *, closest: bool):
+    """Quotient-form Möller–Trumbore (intersect.cl:90-125) of ``M`` rays
+    against a block of triangles each: ``tri`` [M,W] indices, ``valid`` [M,W],
+    ``o, d`` [M,3], ``best_t`` [M]. A triangle is accepted when
+    ``|det| >= EPS``, ``0 <= u <= 1``, ``v >= 0``, ``u + v <= 1`` and
+    ``EPS < t < best_t``.
+
+    Returns ``(hit, t, u, v, tri)`` per ray: whether any triangle was
+    accepted and, with ``closest``, the FIRST one of minimal ``t`` in block
+    order — what sequential strict-``<`` updates would keep. Without
+    ``closest`` (any hit) ``t, u, v`` are ``None`` and ``tri`` is the first
+    accepted triangle in block order, where a sequential test would stop.
+    This is the one triangle test of the package: the CUDA kernels' device
+    helper (csrc/traverse_common.cuh) repeats it in the same association.
+    """
+    v0 = T.v0[tri]
+    e1 = T.e1[tri]
+    e2 = T.e2[tri]
+    co = o[:, None, :]
+    cd = d[:, None, :].expand_as(v0)
+    pvec = V.cross3(cd, e2)
+    det = V.dot3(e1, pvec)
+    ok = torch.abs(det) >= V.INTERSECTION_EPSILON
+    inv_det = 1.0 / torch.where(ok, det, 1.0)
+    tvec = co - v0
+    uu = V.dot3(tvec, pvec) * inv_det
+    ok &= (uu >= 0.0) & (uu <= 1.0)
+    qvec = V.cross3(tvec, e1)
+    vv = V.dot3(cd, qvec) * inv_det
+    ok &= (vv >= 0.0) & (uu + vv <= 1.0)
+    tt = V.dot3(e2, qvec) * inv_det
+    ok &= (tt > V.INTERSECTION_EPSILON) & (tt < best_t[:, None])
+    ok &= valid
+    hit = ok.any(dim=1)
+    width = tri.shape[1]
+    j = torch.arange(width, device=tri.device)
+    if not closest:
+        bj = torch.where(ok, j[None, :], width).min(dim=1).values
+        bj = torch.clamp(bj, max=width - 1)[:, None]
+        return hit, None, None, None, tri.gather(1, bj)[:, 0]
+    tt_m = torch.where(ok, tt, float("inf"))
+    bt = tt_m.min(dim=1).values
+    bj = torch.where(tt_m == bt[:, None], j[None, :], width).min(dim=1).values
+    bj = torch.clamp(bj, max=width - 1)[:, None]
+    return (
+        hit, bt, uu.gather(1, bj)[:, 0], vv.gather(1, bj)[:, 0],
+        tri.gather(1, bj)[:, 0],
+    )
+
+
+def mt_leaves(T: TriArrays, first, cnt, o, d, best_t, *, closest: bool):
+    """``mt_block`` on each ray's own run ``[first, first + cnt)``."""
+    width = max(int(cnt.max()), 1)
+    j = torch.arange(width, device=first.device)
+    tri = torch.clamp(first[:, None] + j[None, :], max=T.v0.shape[0] - 1)
+    valid = j[None, :] < cnt[:, None]
+    return mt_block(T, tri, valid, o, d, best_t, closest=closest)
+
+
+class Touched:
+    """The distinct scene records a traversal reads, kept while it is being
+    instrumented: one bool per node record, triangle and instance. From these
+    a caller works out the bytes the call could not have done without."""
+
+    def __init__(self, device, num_nodes: int, num_tris: int, num_inst: int):
+        def flags(n):
+            return torch.zeros(max(int(n), 1), dtype=torch.bool, device=device)
+
+        self.nodes, self.tris, self.inst = flags(num_nodes), flags(num_tris), flags(num_inst)
+
+    def runs(self, first, count):
+        """Mark the triangles ``[first, first + count)`` of each ray."""
+        if first.numel() == 0:
+            return
+        j = torch.arange(max(int(count.max()), 1), device=first.device)
+        at = first[:, None] + j[None, :]
+        self.tris[at[j[None, :] < count[:, None]]] = True
+
+    def add_to(self, stats: dict) -> None:
+        for key, flags in (
+            ("nodes_touched", self.nodes), ("tris_touched", self.tris),
+            ("inst_touched", self.inst),
+        ):
+            stats[key] = stats.get(key, 0) + int(flags.sum())
+
+
+def tested_in_leaf(hit, first_hit, first, cnt, *, any_hit: bool):
+    """Triangle tests a sequential leaf loop makes per ray: all ``cnt`` for
+    closest hit; for any hit up to and including the first accepted
+    triangle ``first_hit``."""
+    if not any_hit:
+        return cnt
+    return torch.where(hit, first_hit - first + 1, cnt)
+
+
+class BinaryLayout(NamedTuple):
+    """What the binary traversal reads of a scene. ``fetch(node)`` maps node
+    indices [n] to ``(ld, rd, lmin, lmax, rmin, rmax)``: the node's two data
+    words (int64) and both children's boxes ([n,3] each, arbitrary on a
+    leaf). ``w2o`` holds the rows of the 3x4 world->object matrices as
+    ``[I, >=3, 4]``; ``roots`` the BLAS root node per instance;
+    ``num_nodes`` the length of the node array."""
+
+    fetch: Callable
+    tris: TriArrays
+    w2o: torch.Tensor
+    roots: torch.Tensor
+    num_nodes: int
+
+
+def scene_layout(S) -> BinaryLayout:
+    """The uploaded scene's own arrays (separate ldata/rdata/min/max), as the
+    kernel ``csrc/intersect.cu`` reads them."""
+
+    def fetch(node):
+        ld = S["bvh_ldata"][node].to(torch.int64)
+        rd = S["bvh_rdata"][node].to(torch.int64)
+        lc = torch.clamp(ld, min=0)
+        rc = torch.clamp(rd, min=0)
+        return (
+            ld, rd, S["bvh_min"][lc], S["bvh_max"][lc],
+            S["bvh_min"][rc], S["bvh_max"][rc],
+        )
+
+    return BinaryLayout(
+        fetch, TriArrays(S["tri_v0"], S["tri_e1"], S["tri_e2"]),
+        S["inst_w2o"], S["inst_bvh_root"], int(S["bvh_ldata"].shape[0]),
+    )
+
+
 def intersect_bvh(
     S, o, d, maxt, active, *, any_hit: bool, stats: Optional[dict] = None
 ) -> Hit:
-    """Two-level BVH traversal for all lanes, advanced in lock step.
+    """Two-level BVH traversal of the uploaded scene ``S`` for all lanes:
+    ``traverse_binary`` over ``scene_layout(S)``."""
+    return traverse_binary(
+        scene_layout(S), o, d, maxt, active, any_hit=any_hit, stats=stats
+    )
+
+
+def traverse_binary(
+    L: BinaryLayout, o, d, maxt, active, *, any_hit: bool,
+    stats: Optional[dict] = None,
+) -> Hit:
+    """Two-level binary BVH traversal for all lanes, advanced in lock step.
 
     ``o, d`` [N,3] f32, ``maxt`` [N] f32, ``active`` [N] bool. Returns the
     closest hit per lane; with ``any_hit`` a lane stops at its first hit
     with ``EPS < t < maxt`` and only ``mask`` is meaningful.
 
     ``stats``, when given, receives per-call totals of the work the
-    traversal did on these rays: ``inner`` (inner-node visits, two slab
-    tests each), ``tris`` (triangle tests), ``inst`` (instance entries),
-    ``trips`` (host-loop trips).
+    traversal did on these rays, counted as one thread per ray would do it:
+    ``inner`` (inner-node visits), ``slabs`` (slab tests, two per visit),
+    ``tris`` (triangle tests; an any-hit ray stops at its first accepted
+    triangle), ``inst`` (instance entries), ``trips`` (host-loop trips), and
+    the numbers of distinct records read: ``nodes_touched``,
+    ``tris_touched``, ``inst_touched``.
     """
     n = o.shape[0]
     dev = o.device
     i32 = torch.int32
-    num_tris = S["tri_v0"].shape[0]
-    num_inst = S["inst_w2o"].shape[0]
+    num_inst = L.w2o.shape[0]
     rows = torch.arange(n, device=dev)
 
     phase = torch.where(active, PHASE_NODE, PHASE_DONE).to(i32)
@@ -116,12 +274,15 @@ def intersect_bvh(
     n_tris = torch.zeros((), dtype=torch.int64, device=dev)
     n_inst = torch.zeros((), dtype=torch.int64, device=dev)
     trips = 0
+    touched = None
+    if stats is not None:
+        touched = Touched(dev, L.num_nodes, L.tris.v0.shape[0], num_inst)
 
     while bool((phase != PHASE_DONE).any()):
         trips += 1
         in_node = phase == PHASE_NODE
-        ld = S["bvh_ldata"][node].to(torch.int64)
-        rd = S["bvh_rdata"][node].to(torch.int64)
+        node_in = node  # the node each lane holds at the start of this trip
+        ld, rd, lmin, lmax, rmin, rmax = L.fetch(node)
         is_leaf = ld <= 0
         is_top = in_node & is_leaf & (rd == 0)
         is_bot = in_node & is_leaf & (rd != 0)
@@ -129,7 +290,7 @@ def intersect_bvh(
 
         # ---------- TLAS leaf: enter the instance BLAS with a transformed ray
         inst_id = torch.clamp(-ld, 0, num_inst - 1)
-        w2o = S["inst_w2o"][inst_id]
+        w2o = L.w2o[inst_id]
         to = _xform(w2o, cur_o, 1)
         td = _xform(w2o, cur_d, 0)
         top3 = is_top[:, None]
@@ -138,65 +299,37 @@ def intersect_bvh(
         inv = torch.where(top3, _inv_dir(td), inv)
         inst = torch.where(is_top, inst_id.to(i32), inst)
         msbi = torch.where(is_top, sp, msbi)
-        node = torch.where(
-            is_top, S["inst_bvh_root"][inst_id].to(torch.int64), node
-        )
+        node = torch.where(is_top, L.roots[inst_id].to(torch.int64), node)
 
         # ---------- BLAS leaf: all of its triangles at once, on the lanes
-        # that sit at a leaf (Möller–Trumbore, intersect.cl:90-125)
+        # that sit at a leaf
         idx = is_bot.nonzero().squeeze(1)
         if idx.numel():
-            first = -ld[idx]
             cnt = rd[idx]
-            width = max(int(cnt.max()), 1)
-            j = torch.arange(width, device=dev)
-            tri = torch.clamp(first[:, None] + j[None, :], max=num_tris - 1)
-            valid = j[None, :] < cnt[:, None]
-            v0 = S["tri_v0"][tri]
-            e1 = S["tri_e1"][tri]
-            e2 = S["tri_e2"][tri]
-            co = cur_o[idx][:, None, :]
-            cd = cur_d[idx][:, None, :].expand_as(v0)
-            pvec = V.cross3(cd, e2)
-            det = V.dot3(e1, pvec)
-            ok = torch.abs(det) >= V.INTERSECTION_EPSILON
-            inv_det = 1.0 / torch.where(ok, det, 1.0)
-            tvec = co - v0
-            uu = V.dot3(tvec, pvec) * inv_det
-            ok &= (uu >= 0.0) & (uu <= 1.0)
-            qvec = V.cross3(tvec, e1)
-            vv = V.dot3(cd, qvec) * inv_det
-            ok &= (vv >= 0.0) & (uu + vv <= 1.0)
-            tt = V.dot3(e2, qvec) * inv_det
-            ok &= (tt > V.INTERSECTION_EPSILON) & (tt < best_t[idx][:, None])
-            ok &= valid
-            hit = ok.any(dim=1)
+            hit, bt, bu, bv, btri = mt_leaves(
+                L.tris, -ld[idx], cnt, cur_o[idx], cur_d[idx], best_t[idx],
+                closest=not any_hit,
+            )
             if any_hit:
                 found[idx] = found[idx] | hit
                 phase[idx] = torch.where(hit, PHASE_DONE, PHASE_POP).to(i32)
             else:
-                # sequential strict-< updates == the FIRST minimal t
-                tt_m = torch.where(ok, tt, float("inf"))
-                bt = tt_m.min(dim=1).values
-                bj = torch.where(
-                    tt_m == bt[:, None], j[None, :], width
-                ).min(dim=1).values
-                bj = torch.clamp(bj, max=width - 1)[:, None]
                 hi = idx[hit]
                 best_t[hi] = bt[hit]
-                best_u[hi] = uu.gather(1, bj)[:, 0][hit]
-                best_v[hi] = vv.gather(1, bj)[:, 0][hit]
-                best_tri[hi] = tri.gather(1, bj)[:, 0][hit].to(i32)
+                best_u[hi] = bu[hit]
+                best_v[hi] = bv[hit]
+                best_tri[hi] = btri[hit].to(i32)
                 best_inst[hi] = inst[hi]
                 found[hi] = True
                 phase[idx] = PHASE_POP
-            n_tris += cnt.sum()
+            if touched is not None:
+                tested = tested_in_leaf(hit, btri, -ld[idx], cnt, any_hit=any_hit)
+                touched.runs(-ld[idx], tested)
+                n_tris += tested.sum()
 
         # ---------- inner node: slab-test both children, near first
-        lc = torch.clamp(ld, min=0)
-        rc = torch.clamp(rd, min=0)
-        l_dist = _slab_test(cur_o, inv, S["bvh_min"][lc], S["bvh_max"][lc], best_t)
-        r_dist = _slab_test(cur_o, inv, S["bvh_min"][rc], S["bvh_max"][rc], best_t)
+        l_dist = _slab_test(cur_o, inv, lmin, lmax, best_t)
+        r_dist = _slab_test(cur_o, inv, rmin, rmax, best_t)
         want_l = l_dist < V.FLT_MAX
         want_r = r_dist < V.FLT_MAX
         both = is_inner & want_l & want_r
@@ -228,38 +361,91 @@ def intersect_bvh(
             in_pop, torch.where(sp >= 0, PHASE_NODE, PHASE_DONE), phase
         ).to(i32)
 
-        n_inner += is_inner.sum()
-        n_inst += is_top.sum()
+        if touched is not None:
+            touched.nodes[node_in[in_node]] = True
+            touched.inst[inst_id[is_top]] = True
+            n_inner += is_inner.sum()
+            n_inst += is_top.sum()
 
     if stats is not None:
         stats["inner"] = stats.get("inner", 0) + int(n_inner)
+        stats["slabs"] = stats.get("slabs", 0) + 2 * int(n_inner)
         stats["tris"] = stats.get("tris", 0) + int(n_tris)
         stats["inst"] = stats.get("inst", 0) + int(n_inst)
         stats["trips"] = stats.get("trips", 0) + trips
+        touched.add_to(stats)
 
     t = torch.where(found, best_t, 0.0)
     return Hit(t, best_inst, best_tri, best_u, best_v, active & found)
 
 
+# the fields of a compiled scene the traversal packers read
+_GEOMETRY = (
+    "bvh_ldata", "bvh_rdata", "bvh_min", "bvh_max", "tri_v0", "tri_e1",
+    "tri_e2", "inst_w2o", "inst_bvh_root",
+)
+
+# 'auto' on a CUDA scene takes the 8-wide record kernel from this many
+# triangles on: measured on the H100 (PERF.md, the mode-by-scene grid of
+# chip_smoke.py), where it is ahead of the binary kernel on primary and on
+# bounce rays alike. The threshold is placed from procedural terrains of one
+# generator only (20k, 80k, 320k, 819k triangles), and while the frame is
+# bound by the host it moves no end-to-end time: place it again, on other
+# kinds of scene too, once the frame is no longer host-bound
+AUTO_WIDE_MIN_TRIS = 80_000
+
+MODES = (
+    "auto", "kernel", "bvh", "pallas_stream", "pallas_nodes", "pallas8",
+    "pallas8_nodes", "pallas_dense", "hybrid",
+)
+
+
 def make_intersectors(S, mode: str = "auto"):
     """Build ``(closest_hit, any_hit)`` callables for an uploaded scene.
 
-    mode:
-      'kernel' — the hand-written CUDA traversal kernel (CUDA tensors only)
-      'bvh'    — the plain PyTorch traversal above (any device)
-      'auto'   — 'kernel' when the scene lives on a CUDA device, else 'bvh'
+    mode (the names of the JAX package's ``make_intersectors`` where there
+    is a counterpart):
+      'kernel'        the binary CUDA traversal kernel over the uploaded
+                      scene's own arrays (``intersect_cuda``; the JAX
+                      package's 'pallas'). CUDA tensors only.
+      'pallas_stream' the same kernel: on a GPU every scene array already
+                      lies in global memory behind L2, so the kernel that
+                      leaves the triangles in device memory is 'kernel'
+      'pallas_nodes'  binary BVH as 16-float records in depth order
+                      (``intersect_nodes``)
+      'pallas8'       8-wide BVH, boxes and entries apart (``intersect_wide8``)
+      'pallas8_nodes' 8-wide BVH as 64-float records in depth order, the
+                      big-scene kernel (``intersect_wide8_nodes``)
+      'pallas_dense'  no BVH, every triangle, at most 4096 of them
+                      (``intersect_dense``)
+      'hybrid'        'kernel' for primary rays; 'pallas_dense' for bounce
+                      rays (``closest.closest_bounce``) and shadow rays
+      'bvh'           the plain PyTorch binary traversal above (any device)
+      'auto'          on a CUDA device 'pallas8_nodes' for a scene of
+                      ``AUTO_WIDE_MIN_TRIS`` triangles or more, else 'kernel';
+                      on the CPU 'bvh'
+
+    The scene is packed once here, on the host, and the packed arrays are
+    uploaded to the scene's device. A mode with a CUDA kernel runs that
+    kernel's plain PyTorch version when the scene lives on the CPU; only
+    'kernel' insists on a card and raises without one.
 
     Both callables take ``(S, o, d, maxt, active)``; ``closest_hit`` returns
     a ``Hit``, ``any_hit`` the occlusion mask.
     """
     device = S["bvh_ldata"].device
     if mode == "auto":
-        mode = "kernel" if device.type == "cuda" else "bvh"
+        if device.type != "cuda":
+            mode = "bvh"
+        elif S["tri_v0"].shape[0] >= AUTO_WIDE_MIN_TRIS:
+            mode = "pallas8_nodes"
+        else:
+            mode = "kernel"
 
-    if mode == "kernel":
+    if mode in ("kernel", "pallas_stream"):
         from . import intersect_cuda
 
-        if device.type != "cuda":
+        if mode == "kernel" and device.type != "cuda":
             raise ValueError(
                 "mode='kernel' needs the scene on a CUDA device, got "
                 f"{device}; use mode='bvh' for the plain PyTorch traversal"
@@ -276,4 +462,40 @@ def make_intersectors(S, mode: str = "auto"):
 
         return closest, any_hit
 
-    raise ValueError(f"unknown traversal mode {mode!r} (auto | kernel | bvh)")
+    if mode == "hybrid":
+        primary, _ = make_intersectors(S, "pallas_stream")
+        closest_dense, any_hit_dense = make_intersectors(S, "pallas_dense")
+
+        def closest(S, o, d, maxt, active):
+            return primary(S, o, d, maxt, active)
+
+        closest.closest_bounce = closest_dense
+        return closest, any_hit_dense
+
+    packed = {
+        "pallas_nodes": ("intersect_nodes", "pack_scene_nodes"),
+        "pallas8": ("intersect_wide8", "pack_scene8"),
+        "pallas8_nodes": ("intersect_wide8_nodes", "pack_scene8_nodes"),
+        "pallas_dense": ("intersect_dense", "pack_scene_dense"),
+    }
+    if mode in packed:
+        import importlib
+        from types import SimpleNamespace
+
+        from ._launch import upload_packed
+
+        module_name, packer = packed[mode]
+        module = importlib.import_module(f"{__package__}.{module_name}")
+        host = SimpleNamespace(**{k: S[k].cpu().numpy() for k in _GEOMETRY})
+        P = upload_packed(getattr(module, packer)(host), device)
+
+        def closest(S, o, d, maxt, active):
+            return module.closest_hit(P, o, d, maxt, active)
+
+        def any_hit(S, o, d, maxt, active):
+            return module.any_hit(P, o, d, maxt, active)
+
+        closest.packed = P
+        return closest, any_hit
+
+    raise ValueError(f"unknown traversal mode {mode!r} ({' | '.join(MODES)})")

@@ -16,17 +16,13 @@ counts kernel launches per entry point, and nothing else.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from ._build import load_library
+from . import _launch
+from ._launch import check as _check
 from .intersect import Hit, intersect_bvh
 
 SOURCE = "intersect.cu"
-# each multiply and add rounds on its own, as in the plain PyTorch version,
-# so both take identical hit/miss decisions (see the note in the source)
-EXTRA_FLAGS = ("-fmad=false",)
 
 LAUNCHES = {"closest_hit": 0, "any_hit": 0}
 
@@ -54,31 +50,11 @@ _LIB = None
 def load():
     """Build (first use) and bind the kernel library; cached per process."""
     global _LIB
-    if _LIB is not None:
-        return _LIB
-    lib = load_library(SOURCE, EXTRA_FLAGS)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    scene = [p] * 9 + [i, i]
-    # scene, n, (o, d, maxt, active), outputs, stream
-    lib.polaris_closest_hit.argtypes = scene + [i] + [p] * 4 + [p] * 6 + [p]
-    lib.polaris_closest_hit.restype = i
-    lib.polaris_any_hit.argtypes = scene + [i] + [p] * 4 + [p] + [p]
-    lib.polaris_any_hit.restype = i
-    _LIB = lib
-    return lib
-
-
-def _check(name, x, dtype, ndim, device):
-    if not isinstance(x, torch.Tensor):
-        raise TypeError(f"{name}: expected a tensor, got {type(x).__name__}")
-    if x.device != device:
-        raise ValueError(f"{name}: on {x.device}, expected {device}")
-    if x.dtype != dtype:
-        raise TypeError(f"{name}: dtype {x.dtype}, expected {dtype}")
-    if x.dim() != ndim:
-        raise ValueError(f"{name}: {x.dim()} dims, expected {ndim}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
+    if _LIB is None:
+        _LIB = _launch.bind(
+            SOURCE, "polaris_closest_hit", "polaris_any_hit", "p" * 9 + "ii"
+        )
+    return _LIB
 
 
 def _scene_pointers(S, device):
@@ -102,65 +78,23 @@ def _scene_pointers(S, device):
     return ptrs + [num_tris, num_inst]
 
 
-def _ray_pointers(o, d, maxt, active):
-    device = o.device
-    n = o.shape[0]
-    _check("o", o, torch.float32, 2, device)
-    _check("d", d, torch.float32, 2, device)
-    _check("maxt", maxt, torch.float32, 1, device)
-    if active.dtype not in (torch.bool, torch.uint8):
-        raise TypeError(f"active: dtype {active.dtype}, expected bool or uint8")
-    _check("active", active, active.dtype, 1, device)
-    if o.shape[1] != 3 or tuple(d.shape) != (n, 3) or maxt.shape[0] != n or active.shape[0] != n:
-        raise ValueError(
-            f"ray shapes disagree: o {tuple(o.shape)}, d {tuple(d.shape)}, "
-            f"maxt {tuple(maxt.shape)}, active {tuple(active.shape)}"
-        )
-    return n, [o.data_ptr(), d.data_ptr(), maxt.data_ptr(), active.data_ptr()]
-
-
-def _raise_on(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what}: kernel launch failed with CUDA error {err}")
-
-
 def closest_hit(S, o, d, maxt, active) -> Hit:
     """Closest hit per ray through the CUDA kernel (plain version on CPU)."""
     if o.device.type != "cuda":
         return intersect_bvh(S, o, d, maxt, active, any_hit=False)
-    n, rays = _ray_pointers(o, d, maxt, active)
-    scene = _scene_pointers(S, o.device)
-    lib = load()
-    f32 = dict(dtype=torch.float32, device=o.device)
-    t = torch.empty(n, **f32)
-    u = torch.empty(n, **f32)
-    v = torch.empty(n, **f32)
-    tri = torch.empty(n, dtype=torch.int32, device=o.device)
-    inst = torch.empty(n, dtype=torch.int32, device=o.device)
-    found = torch.empty(n, dtype=torch.bool, device=o.device)
-    with torch.cuda.device(o.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.polaris_closest_hit(
-            *scene, n, *rays,
-            t.data_ptr(), u.data_ptr(), v.data_ptr(), tri.data_ptr(),
-            inst.data_ptr(), found.data_ptr(), stream,
-        )
-    _raise_on(err, "polaris_closest_hit")
+    hit = _launch.run_closest(
+        load()[0], _scene_pointers(S, o.device), o, d, maxt, active
+    )
     LAUNCHES["closest_hit"] += 1
-    return Hit(t, inst, tri, u, v, found)
+    return hit
 
 
 def any_hit(S, o, d, maxt, active) -> torch.Tensor:
     """Occlusion mask per ray through the CUDA kernel (plain version on CPU)."""
     if o.device.type != "cuda":
         return intersect_bvh(S, o, d, maxt, active, any_hit=True).mask
-    n, rays = _ray_pointers(o, d, maxt, active)
-    scene = _scene_pointers(S, o.device)
-    lib = load()
-    found = torch.empty(n, dtype=torch.bool, device=o.device)
-    with torch.cuda.device(o.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.polaris_any_hit(*scene, n, *rays, found.data_ptr(), stream)
-    _raise_on(err, "polaris_any_hit")
+    found = _launch.run_any(
+        load()[1], _scene_pointers(S, o.device), o, d, maxt, active
+    )
     LAUNCHES["any_hit"] += 1
     return found

@@ -30,10 +30,12 @@ from ..ops import vec as V
 from ..ops.intersect import make_intersectors
 from ..ops.material import material_tree_depth
 from ..scene import as_scene_data, resolve_device, upload_scene
-from ..utils.log import Timer
+from ..utils.log import Timer, get_logger
 from .options import RenderOptions
 from .raygen import gen_rays
 from .shade import shade, shade_miss, tonemap_reinhard
+
+_log = get_logger("integrator")
 
 TILE_RAYS = 1024  # lanes per screen block (32x32 pixels)
 
@@ -143,11 +145,14 @@ def render_sample_block(
     material_depth: Optional[int] = None,
     rr_tile_coherent: bool = False,
     active_init=None,
+    closest_bounce=None,
 ):
     """Trace ONE sample for a block of pixels; returns radiance [N, 3].
 
     ``pixel_*`` are full-frame coordinates, so a block of any shape behaves
-    exactly like the same pixels of a full-frame render.
+    exactly like the same pixels of a full-frame render. ``closest_bounce``,
+    when given, finds the closest hits of every bounce after the first
+    (the 'hybrid' traversal: another kernel for incoherent rays).
     """
     n = pixel_idx.shape[0]
     dev = pixel_idx.device
@@ -167,7 +172,8 @@ def render_sample_block(
     for b in range(num_bounces):
         U = rng.make_uniform(seed, pixel_idx, sample_idx, b, rr_key=rr_key)
         radiance, out = _trace_bounce(
-            S, closest, any_hit,
+            S, closest_bounce if (closest_bounce is not None and b > 0) else closest,
+            any_hit,
             ray_o=ray_o, ray_d=ray_d, maxt=maxt, alive=alive,
             throughput=throughput, flags=flags, radiance=radiance, U=U,
             bounce=b, is_primary=(b == 0),
@@ -271,8 +277,12 @@ class TorchRenderer:
 
     ``device=None`` means the CUDA device and raises when there is none;
     the CPU is used only on request (``device="cpu"``). ``mode`` selects the
-    traversal backend ('auto' | 'kernel' | 'bvh', ops/intersect.py);
-    ``regen`` switches the sample loop to wavefront path regeneration.
+    traversal backend (``ops/intersect.py::make_intersectors`` lists the
+    modes); ``regen`` switches the sample loop to wavefront path
+    regeneration. A mode that peels the bounces after the first onto another
+    kernel ('hybrid') cannot regenerate, because regeneration mixes bounce
+    depths in one pass: the renderer then warns and takes the sequential
+    sample loop.
     """
 
     # samples per launch of the sample loop: bounds the work queued between
@@ -286,6 +296,13 @@ class TorchRenderer:
         self.regen = regen
         self.S = upload_scene(self.scene, self.device)
         self.closest, self.any_hit = make_intersectors(self.S, mode)
+        self.closest_bounce = getattr(self.closest, "closest_bounce", None)
+        if self.regen and self.closest_bounce is not None:
+            _log.warning(
+                "regen is unsupported with the hybrid traversal's peeled "
+                "bounce kernel; using the sequential sample loop"
+            )
+            self.regen = False
         self.num_emissives = int(self.scene.emis_area.shape[0])
         self.scene_diffuse_mat = int(self.scene.scene_diffuse_mat)
         self.material_depth = material_tree_depth(
@@ -356,7 +373,8 @@ class TorchRenderer:
         for s in range(opt.spp):
             accum = accum + render_sample_block(
                 self.S, self.closest, self.any_hit,
-                sample_idx=sample_offset + s, **common,
+                sample_idx=sample_offset + s,
+                closest_bounce=self.closest_bounce, **common,
             )
         self.last_trips += opt.spp * opt.num_bounces
         return accum

@@ -1,21 +1,26 @@
-"""Where the flagship frame's time goes in the PyTorch/CUDA port (one GPU).
+"""Where a frame's time goes in the PyTorch/CUDA port (one GPU).
 
     python3 scripts/torch_frame_breakdown.py [--out FILE.json]
+    python3 scripts/torch_frame_breakdown.py --scene terrain819k --mode pallas8_nodes
 
-Renders the flagship frame (sphere.obj, 512x512, 16 spp, 5 bounces, RR after
-bounce 3, path regeneration, one launch, ``render_u8``) with
-``polaris_tpu_torch`` and prints one JSON object:
+Without arguments renders the flagship frame (sphere.obj, 512x512, 16 spp,
+5 bounces, RR after bounce 3, path regeneration, one launch, ``render_u8``).
+``--scene terrain819k`` renders the big-scene frame instead (the procedural
+terrain at grid 640, 512x512, 4 spp, 3 bounces, RR after 4, sequential sample
+loop, ``spp_per_launch=1``) through the traversal mode given by ``--mode``
+(``pallas8_nodes`` or ``pallas_nodes``). Prints one JSON object:
 
-  frame       best-of-3 frame ms and the trips of the regeneration loop
+  frame       best-of-3 frame ms and the trips of the sample loop
   profile     one frame under torch.profiler: wall ms, summed device-kernel
               ms, kernels launched, device busy share, the heaviest kernels
   layers      one frame with a device synchronisation around every layer
               (raygen, closest hit, shade, any hit): serialised ms per layer,
               calls, and what is left for RNG and loop bookkeeping
   loop_sync   latency of the loop condition ``bool(alive.any())`` on an idle
-              device, and that latency times the frame's trips
+              device, and that latency times the frame's trips (regeneration
+              loop only; null for the sequential loop, which reads nothing back)
 
-Needs a CUDA device and nvcc (the traversal kernel is built at first use);
+Needs a CUDA device and nvcc (a traversal kernel is built at first use);
 without a CUDA device it exits non-zero. Every number is measured on the card
 this runs on; its name and power limit are part of the output.
 """
@@ -34,7 +39,11 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
-FRAME, SPP, BOUNCES, RR_AFTER = 512, 16, 5, 3
+# scene -> frame, spp, bounces, RR after, regen, spp per launch, default mode
+WORKLOADS = {
+    "sphere": (512, 16, 5, 3, True, 16, "auto"),
+    "terrain819k": (512, 4, 3, 4, False, 1, "pallas8_nodes"),
+}
 
 
 def _card() -> str:
@@ -135,37 +144,55 @@ def measure_loop_sync(n: int, trips: int, reps: int = 200) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the JSON object to this file")
+    ap.add_argument("--scene", choices=sorted(WORKLOADS), default="sphere")
+    ap.add_argument("--mode", help="traversal mode (default: the workload's own)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_frame_breakdown: no CUDA device available", file=sys.stderr)
         return 1
 
     from polaris_tpu_torch.asset.compiler.compiler import compile_scene
+    from polaris_tpu_torch.asset.procedural import make_terrain_scene
     from polaris_tpu_torch.asset.wavefront import read_scene
     from polaris_tpu_torch.render.integrator import TorchRenderer
     from polaris_tpu_torch.render.options import RenderOptions
 
-    scene = compile_scene(read_scene(os.path.join(REPO, "scenes", "sphere.obj")))
-    renderer = TorchRenderer(scene, mode="auto", regen=True)
-    renderer.spp_per_launch = SPP
+    frame, spp, bounces, rr_after, regen, per_launch, mode = WORKLOADS[args.scene]
+    mode = args.mode or mode
+    if args.scene == "sphere":
+        scene = compile_scene(read_scene(os.path.join(REPO, "scenes", "sphere.obj")))
+    else:
+        scene = compile_scene(make_terrain_scene(grid=640))
+    renderer = TorchRenderer(scene, mode=mode, regen=regen)
+    renderer.spp_per_launch = per_launch
     opt = RenderOptions(
-        width=FRAME, height=FRAME, spp=SPP, num_bounces=BOUNCES,
-        min_bounces_for_rr=RR_AFTER,
+        width=frame, height=frame, spp=spp, num_bounces=bounces,
+        min_bounces_for_rr=rr_after,
     )
     renderer.render_u8(opt)  # warm-up: builds and loads the kernel
     frames = [_timed_frame(renderer, opt) for _ in range(3)]
     frame_ms = min(frames)
     trips = renderer.last_trips
+    profile = measure_profile(renderer, opt)
+    if isinstance(profile.get("device_ms"), float):
+        # the profiler inflates the wall time many times over: the busy share
+        # that means something is device time over the unprofiled frame
+        profile["device_busy_share_of_unprofiled_frame"] = profile["device_ms"] / frame_ms
     result = {
         "card": _card(),
         "torch": torch.__version__,
+        "workload": {
+            "scene": args.scene, "mode": mode, "triangles": int(scene.tri_v0.shape[0]),
+            "frame": frame, "spp": spp, "bounces": bounces, "regen": regen,
+        },
         "frame": {
             "frame_ms": frame_ms, "frame_ms_all": frames, "trips": trips,
-            "mrays_per_s": FRAME * FRAME * SPP * BOUNCES * 2 / frame_ms / 1e3,
+            "mrays_per_s": frame * frame * spp * bounces * 2 / frame_ms / 1e3,
         },
-        "profile": measure_profile(renderer, opt),
+        "profile": profile,
         "layers": measure_layers(renderer, opt),
-        "loop_sync": measure_loop_sync(FRAME * FRAME, trips),
+        # only the regeneration loop reads its condition back to the host
+        "loop_sync": measure_loop_sync(frame * frame, trips) if regen else None,
     }
     text = json.dumps(result, indent=1)
     print(text)
