@@ -9,18 +9,21 @@ printing one JSON line:
   device    card name and power limit (nvidia-smi), torch / CUDA versions
   build     seconds to build each kernel library
   scenes    seconds to compile each scene on the host (sphere, instanced,
-            cornell, and the procedural terrains of 320k and 819k triangles)
-            and to pack the big one for each kernel; fails if the native BVH
-            library did not load
+            cornell, mitsuba, dispersive, and the procedural terrains of 320k
+            and 819k triangles) and to pack the big one for each kernel; fails
+            if the native BVH library did not load
   kernels   every kernel entry point, closest hit and any hit, against its
             plain PyTorch version on real rays (primary, bounce-1 and NEE
-            shadow rays of a frame in blocked order): K1 on the flagship
-            sphere frame, the instanced scene and terrain320k (the scene the
-            JAX package streams triangles for: 'pallas_stream'); K2 and K3
-            on instanced and terrain819k; K4 on sphere, instanced and
+            shadow rays of a frame in blocked order): K1 with both of its
+            triangle tests (det^2-scaled Moller-Trumbore, and Havel-Herout as
+            'K1hh') on the flagship sphere frame, the instanced scene and the
+            textured mitsuba scene, the default test also on terrain320k (the
+            scene the JAX package streams triangles for: 'pallas_stream'); K2
+            and K3 on instanced and terrain819k; K4 on sphere, instanced and
             cornell; K5 on cornell; for each an all-inactive batch and a ray
             count that is no multiple of the block size. Each kernel's hits
-            are also held against K1's on the same rays. Times each on the
+            are also held against K1's on the same rays, as far as the two
+            share an arithmetic (``cross_check``). Times each on the
             device (launches replayed from a CUDA graph, ``ms``) and as the
             caller sees it (``call_ms``), and works out the least time the
             card could take from the records and operations that the plain
@@ -29,8 +32,9 @@ printing one JSON line:
             instanced and four terrains of 20k to 819k triangles (the table
             behind the 'auto' rule), each cell timed three times, and which
             kernel 'auto' picks for each scene
-  golden    sphere 32x32, 2 spp, 2 bounces through the kernel against the
-            accumulator the JAX package rendered (tests/fixtures)
+  golden    sphere and mitsuba 32x32, 2 spp, 2 bounces through the kernel,
+            with each of its triangle tests, against the accumulators the JAX
+            package rendered (tests/fixtures)
   flagship  sphere 512x512, 16 spp, 5 bounces, RR after 3, path
             regeneration, one launch, ``render_u8``: one warm-up, best of 3,
             launch counts of both K1 entry points read around one frame
@@ -40,9 +44,17 @@ printing one JSON line:
             warm-up, best of 2, launch counts read around one frame, image
             non-black, the two u8 images equal; then 'hybrid' (K1 + K5) and
             'pallas8' (K4) on cornell 256x256, 4 spp against mode 'kernel'
+  configs   the five benchmark configurations of the JAX package's
+            bench_configs.py at their full sizes (sphere, mitsuba, instanced
+            512x512 16 spp; cornell 512x512 64 spp; dispersive 1024x1024
+            256 spp; 5 bounces, RR after 3, mode 'auto', path regeneration,
+            ``spp_per_launch=16``, ``render_u8``): one warm-up, best of 2 (of
+            1 from 128 spp on); frame ms, Mrays/s, trips, K1 launches, image
+            non-black. Then sphere and mitsuba once more through the
+            Havel-Herout test, with the u8 level difference to the default
 
 The last three lines of the output are: the card's name and power limit as
-nvidia-smi prints them, one JSON object ``{"kernels": [...]}`` with the ten
+nvidia-smi prints them, one JSON object ``{"kernels": [...]}`` with the twelve
 kernel entry points, and ``{"ok": true, "device": {...}}``. Any failure ends
 the run with a non-zero exit code and no result line; without a CUDA device
 nothing runs.
@@ -65,10 +77,23 @@ sys.path.insert(0, HERE)
 # published peaks of one H100 SXM (NVIDIA data sheet): the yardsticks of bound_ms
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
-TRI_BYTES, XFORM_BYTES = 36, 48  # a [v0, e1, e2] row; a 3x4 matrix
+XFORM_BYTES = 48  # a 3x4 matrix
+# a [v0, e1, e2] row; a Havel-Herout row [N d0 N1 d1 N2 d2]
+TRI_BYTES = {"quot": 36, "det2": 36, "hh": 48}
 # float operations per unit of traversal work, counted from csrc/traverse_common.cuh
 SLAB_FLOPS = 25  # 6 sub, 6 mul, 10 min/max, 3 compares
-TRI_FLOPS = 53  # 2 cross (18), 4 dot (20), 3 sub, 3 mul, 1 div, 8 compares
+# per triangle test of a closest-hit query, by leaf form:
+#   quot  2 cross (18), 4 dot (20), 3 sub, 3 mul by 1/det, 1 div, 1 add, 7 compares
+#   det2  2 cross (18), 4 dot (20), 3 sub, 3 mul by det, det*det, EPS*det^2,
+#         1 add, 2 mul of the cross-multiplied compare, 7 compares
+#   hh    det and t_raw (11), det*det, scaled hit point (9), two plane
+#         equations times det (16), 1 add, t_raw*det, EPS*det^2, 2 mul of the
+#         cross-multiplied compare, 6 compares
+# an any-hit query of a scaled form needs one multiply less (maxt*det^2 only).
+# The one divide and three multiplies that close a leaf of a scaled form are
+# left out: the plain versions do not count leaf visits, and a bound that
+# leaves work out is still a bound
+TRI_FLOPS = {"quot": 53, "det2": 56, "hh": 48}
 XFORM_FLOPS = 36  # 3x4 matrix on o and d, 3 reciprocals
 
 # the flagship frame (the JAX package's bench.py workload) and the check sizes
@@ -89,41 +114,88 @@ GRID_SCENES = (
 
 T_RTOL, T_ATOL = 1e-5, 1e-6  # t, u, v on lanes where both versions hit
 MAX_MISMATCH_SHARE = 1e-4  # lanes whose found/tri/inst may differ (ties)
+# t of the Havel-Herout test against Moller-Trumbore's on the same triangle:
+# its numerator is a plane offset, d0 - o.N, which cancels for an origin that
+# lies far from the world's origin compared with t (a bounce ray leaving a
+# surface). A CPU rehearsal on 65,536 rays a set read up to 1.5e-4 relative on
+# bounce rays and 9e-6 on primary rays, where the quotient form stays at 2e-7
+HH_T_RTOL, HH_T_ATOL = 1e-3, 1e-4
+# the five benchmark configurations: scene, width, height, spp (5 bounces, RR
+# after 3 each)
+CONFIGS = (
+    ("sphere", 512, 512, 16),
+    ("cornell", 512, 512, 64),
+    ("mitsuba", 512, 512, 16),
+    ("instanced", 512, 512, 16),
+    ("dispersive", 1024, 1024, 256),
+)
+# two frames of one scene whose paths may part on an ulp (another leaf
+# arithmetic): pixels more than one u8 level apart, at most this share
+MAX_LEVEL_SHARE = 0.005
 
 # every kernel: its wrapper module (which names its source), the traversal
-# mode that selects it, the TPU kernel it replaces, the prefix of its two
-# entries in the ``kernels`` line, its plain version, and the bytes of one
-# node record as the kernel reads it (K1: two data words and a box; K3: a
-# 16-float record; K4: 8 boxes and 8 entries; K2: a 64-float record) and of
-# what it reads once per instance besides the 3x4 matrix
+# mode that selects it, the TPU kernel it replaces, the names of its two
+# entries in the ``kernels`` line (closest hit, any hit), which are also its
+# keys in the module's LAUNCHES, its plain version, its leaf form, and the
+# bytes of one node record as the kernel reads it (K1: two data words and a
+# box; K3: a 16-float record; K4: 8 boxes and 8 entries; K2: a 64-float
+# record) and of what it reads once per instance besides the 3x4 matrix.
+# K1hh is K1 with its Havel-Herout triangle test: the same kernel body and
+# library, two entry points of its own
 FAMILIES = {
     "K1": dict(
         module="intersect_cuda", mode="kernel",
-        replaces="polaris_tpu/ops/intersect_pallas.py:93", prefix="",
-        plain=None, node_bytes=32, inst_bytes=4,
+        replaces="polaris_tpu/ops/intersect_pallas.py:93",
+        names=("closest_hit", "any_hit"), keys=("closest_hit", "any_hit"),
+        plain=None, leaf="det2", node_bytes=32, inst_bytes=4,
+    ),
+    "K1hh": dict(
+        module="intersect_cuda", mode="kernel",
+        replaces="polaris_tpu/ops/intersect_pallas.py:271",
+        names=("closest_hit_hh", "any_hit_hh"),
+        keys=("closest_hit_hh", "any_hit_hh"),
+        plain=None, leaf="hh", node_bytes=32, inst_bytes=4,
     ),
     "K2": dict(
         module="intersect_wide8_nodes", mode="pallas8_nodes",
         replaces="polaris_tpu/ops/intersect_pallas8_nodes.py:246",
-        prefix="wide8_nodes_", plain="wide8_nodes_plain",
-        node_bytes=256, inst_bytes=4,
+        names=("wide8_nodes_closest_hit", "wide8_nodes_any_hit"),
+        keys=("closest_hit", "any_hit"), plain="wide8_nodes_plain",
+        leaf="det2", node_bytes=256, inst_bytes=4,
     ),
     "K3": dict(
         module="intersect_nodes", mode="pallas_nodes",
         replaces="polaris_tpu/ops/intersect_pallas_nodes.py:61",
-        prefix="nodes_", plain="nodes_plain", node_bytes=64, inst_bytes=4,
+        names=("nodes_closest_hit", "nodes_any_hit"),
+        keys=("closest_hit", "any_hit"), plain="nodes_plain", leaf="det2",
+        node_bytes=64, inst_bytes=4,
     ),
     "K4": dict(
         module="intersect_wide8", mode="pallas8",
         replaces="polaris_tpu/ops/intersect_pallas8.py:154",
-        prefix="wide8_", plain="wide8_plain", node_bytes=224, inst_bytes=4,
+        names=("wide8_closest_hit", "wide8_any_hit"),
+        keys=("closest_hit", "any_hit"), plain="wide8_plain", leaf="quot",
+        node_bytes=224, inst_bytes=4,
     ),
     "K5": dict(
         module="intersect_dense", mode="pallas_dense",
         replaces="polaris_tpu/ops/intersect_pallas_dense.py:40",
-        prefix="dense_", plain="dense_plain", node_bytes=0, inst_bytes=8,
+        names=("dense_closest_hit", "dense_any_hit"),
+        keys=("closest_hit", "any_hit"), plain="dense_plain", leaf="det2",
+        node_bytes=0, inst_bytes=8,
     ),
 }
+# how far a kernel's hits must agree with K1's on the same rays
+#   "bits"  every field of every lane equal (K3: the TPU kernels' contract)
+#   "same"  t, u, v equal bit for bit wherever both keep the same triangle;
+#           near-ties counted, their t within T_RTOL / T_ATOL (K2, K5: K1's
+#           arithmetic, another visit order or another place for the divide)
+#   "tol"   t within T_RTOL / T_ATOL wherever both keep the same triangle;
+#           lanes that differ in found / tri / inst counted, at most
+#           MAX_MISMATCH_SHARE (K4: quotient form)
+#   "hh"    as "tol" with t within HH_T_RTOL / HH_T_ATOL (K1hh: another
+#           test, which may also accept other lanes on a triangle's edge)
+AGAINST_K1 = {"K1hh": "hh", "K2": "same", "K3": "bits", "K4": "tol", "K5": "same"}
 
 
 def emit(phase: str, **kw) -> None:
@@ -203,14 +275,26 @@ class Bound:
     scene itself for K1, the packed arrays for the others)."""
 
     def __init__(self, fam: str, S):
+        from functools import partial
+
         from polaris_tpu_torch.ops.intersect import intersect_bvh, make_intersectors
 
         self.fam = fam
         self.module = module_of(fam)
+        self._closest, self._any = self.module.closest_hit, self.module.any_hit
+        self.pack_seconds = 0.0
         if fam == "K1":
             self.P = S
-            self._plain = intersect_bvh
-            self.pack_seconds = 0.0
+            self._plain = partial(intersect_bvh, leaf="det2")
+        elif fam == "K1hh":
+            self.P = S
+            t0 = time.perf_counter()
+            rows = self.module.hh_intersectors(S)[0].tris_hh
+            torch.cuda.synchronize()
+            self.pack_seconds = time.perf_counter() - t0
+            self._closest = lambda S_, *rays: self.module.closest_hit_hh(S_, rows, *rays)
+            self._any = lambda S_, *rays: self.module.any_hit_hh(S_, rows, *rays)
+            self._plain = partial(intersect_bvh, leaf="hh", tris_hh=rows)
         else:
             t0 = time.perf_counter()
             closest, _ = make_intersectors(S, FAMILIES[fam]["mode"])
@@ -220,10 +304,10 @@ class Bound:
             self._plain = getattr(self.module, FAMILIES[fam]["plain"])
 
     def closest(self, rays):
-        return self.module.closest_hit(self.P, *rays)
+        return self._closest(self.P, *rays)
 
     def any(self, rays):
-        return self.module.any_hit(self.P, *rays)
+        return self._any(self.P, *rays)
 
     def run(self, rays, any_hit: bool):
         return self.any(rays) if any_hit else self.closest(rays)
@@ -314,8 +398,8 @@ def compare(kern: Bound, rays, any_hit: bool, label: str, stats=None):
                 max_err = max(max_err, float(err.max()))
         if bool((~got.mask & (got.t != 0)).any()):
             fail(f"{label}: a lane without a hit has t != 0")
-    # the triangle test and the visit order are shared, so the limit is 0
-    # lanes in practice; MAX_MISMATCH_SHARE is the stated bound
+    # kernel and plain version share leaf arithmetic and visit order, so the
+    # limit is 0 lanes in practice; MAX_MISMATCH_SHARE is the stated bound
     if mism > MAX_MISMATCH_SHARE * max(n, 1):
         fail(
             f"{label}: {mism} of {n} lanes disagree on found/tri/inst "
@@ -329,32 +413,51 @@ def compare(kern: Bound, rays, any_hit: bool, label: str, stats=None):
     return rec, got
 
 
-def cross_check(got, base, any_hit: bool, n: int, label: str) -> dict:
-    """One kernel's result against K1's on the same rays. Every kernel calls
-    the same triangle test, so a triangle's t, u, v are the same bits in all
-    of them. Which triangle survives can still differ on a near-tie: a box's
-    slab entry distance may round above a hit distance inside it, and which
-    box is then culled depends on the visit order (coplanar overlapping
-    geometry, e.g. cornell's light in the ceiling plane). Such lanes are
-    counted as ties; their t must agree within T_RTOL / T_ATOL."""
+def cross_check(got, base, any_hit: bool, n: int, label: str, how: str) -> dict:
+    """One kernel's result against K1's on the same rays, held to ``how``
+    (see AGAINST_K1). Kernels that share K1's leaf arithmetic return a
+    triangle's t, u, v in the same bits. Which triangle survives can still
+    differ on a near-tie: a box's slab entry distance may round above a hit
+    distance inside it, and which box is then culled depends on the visit
+    order (coplanar overlapping geometry, e.g. cornell's light in the ceiling
+    plane); the dense kernel divides once per ray instead of once per leaf, so
+    its acceptance compare rounds differently. Such lanes are counted as
+    ties; their t must agree within T_RTOL / T_ATOL. Another arithmetic
+    (quotient form, Havel-Herout) agrees on t by tolerance only, and may
+    accept another lane on a triangle's very edge."""
     if any_hit:
         off = int((got != base).sum())
         ties = 0
+        if how == "bits" and off:
+            fail(f"{label}: occlusion differs from K1's on {off} lanes")
     else:
         off = int((got.mask != base.mask).sum())
         both = got.mask & base.mask
-        err = (got.t - base.t).abs()[both]
-        tol = (T_ATOL + T_RTOL * base.t.abs())[both]
+        same = both & (got.tri == base.tri) & (got.inst == base.inst)
+        ties = int((both & ~same).sum())
+        check_t = same if how in ("tol", "hh") else both
+        rtol, atol = (HH_T_RTOL, HH_T_ATOL) if how == "hh" else (T_RTOL, T_ATOL)
+        err = (got.t - base.t).abs()[check_t]
+        tol = (atol + rtol * base.t.abs())[check_t]
+        t_err = float(err.max()) if err.numel() else 0.0
         if bool((err > tol).any()):
             fail(f"{label}: t differs from K1's by {float(err.max()):.3e}")
-        ties = int((both & ((got.tri != base.tri) | (got.inst != base.inst))).sum())
-        same = both & (got.tri == base.tri) & (got.inst == base.inst)
-        for f in ("t", "u", "v"):
-            if not torch.equal(getattr(got, f)[same], getattr(base, f)[same]):
-                fail(f"{label}: {f} of the same triangle differs from K1's")
+        if how == "bits":
+            for f in ("t", "u", "v", "tri", "inst", "mask"):
+                if not torch.equal(getattr(got, f), getattr(base, f)):
+                    fail(f"{label}: {f} differs from K1's (must be equal bit for bit)")
+        elif how == "same":
+            for f in ("t", "u", "v"):
+                if not torch.equal(getattr(got, f)[same], getattr(base, f)[same]):
+                    fail(f"{label}: {f} of the same triangle differs from K1's")
+        else:
+            off += ties
     if off > MAX_MISMATCH_SHARE * max(n, 1):
-        fail(f"{label}: found differs from K1's on {off} of {n} lanes")
-    return {"check": label, "found_differs": off, "tie_lanes": ties}
+        fail(f"{label}: hits differ from K1's on {off} of {n} lanes")
+    rec = {"check": label, "how": how, "found_differs": off, "tie_lanes": ties}
+    if not any_hit:
+        rec["t_max_abs_diff"] = t_err
+    return rec
 
 
 def bound_ms(kern: Bound, rays, any_hit: bool, stats: dict):
@@ -371,17 +474,19 @@ def bound_ms(kern: Bound, rays, any_hit: bool, stats: dict):
     o, d, maxt, active = rays
     n = int(o.shape[0])
     spec = FAMILIES[kern.fam]
+    leaf = spec["leaf"]
+    tri_flops = TRI_FLOPS[leaf] - (1 if any_hit and leaf != "quot" else 0)
     ray_bytes = n + int(active.sum()) * (12 + 12 + 4)
     out_bytes = n * (1 if any_hit else 3 * 4 + 2 * 4 + 1)
     scene_bytes = (
         stats["nodes_touched"] * spec["node_bytes"]
-        + stats["tris_touched"] * TRI_BYTES
+        + stats["tris_touched"] * TRI_BYTES[leaf]
         + stats["inst_touched"] * (XFORM_BYTES + spec["inst_bytes"])
     )
     nbytes = ray_bytes + out_bytes + scene_bytes
     flops = (
         stats["slabs"] * SLAB_FLOPS
-        + stats["tris"] * TRI_FLOPS
+        + stats["tris"] * tri_flops
         + stats["inst"] * XFORM_FLOPS
     )
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
@@ -427,7 +532,7 @@ SETS = (("primary", False), ("bounce1", False), ("shadow", True))
 
 
 def phase_kernels(ctx):
-    """``ctx``: name -> SceneRays. Returns the ten entries of the kernels line."""
+    """``ctx``: name -> SceneRays. Returns the twelve entries of the kernels line."""
     checks, crosses, entries = [], [], {}
 
     def check_sets(fam, scene_name):
@@ -443,7 +548,10 @@ def phase_kernels(ctx):
             checks.append(rec)
             if fam != "K1":
                 crosses.append(
-                    cross_check(got, sr.k1(key, any_hit), any_hit, rec["n_rays"], label)
+                    cross_check(
+                        got, sr.k1(key, any_hit), any_hit, rec["n_rays"], label,
+                        AGAINST_K1[fam],
+                    )
                 )
             out[key] = (rec, stats)
         return out
@@ -475,11 +583,13 @@ def phase_kernels(ctx):
         sr = ctx[scene_name]
         kern = sr.bound(fam)
         spec = FAMILIES[fam]
-        for name, key, any_hit in (("closest_hit", "primary", False), ("any_hit", "shadow", True)):
+        for name, key, any_hit in (
+            (spec["names"][0], "primary", False), (spec["names"][1], "shadow", True),
+        ):
             rec, stats = results[key]
             b_ms, b_by, detail = bound_ms(kern, sr.rays[key], any_hit, stats)
-            entries[spec["prefix"] + name] = {
-                "name": spec["prefix"] + name, "kernel": fam, "route": "cuda",
+            entries[name] = {
+                "name": name, "kernel": fam, "any_hit": any_hit, "route": "cuda",
                 "source": f"polaris_tpu_torch/csrc/{kern.module.SOURCE}",
                 "replaces": spec["replaces"], "launches": 0,
                 "n_rays": rec["n_rays"],
@@ -490,14 +600,18 @@ def phase_kernels(ctx):
                 "plain_ms": rec["plain_ms"], "bound_ms": b_ms,
                 "bound_by": b_by, "library_ms": None, "bound_detail": detail,
             }
-        entries[spec["prefix"] + "closest_hit"]["ms_bounce1"] = results["bounce1"][0]["ms"]
+        entries[spec["names"][0]]["ms_bounce1"] = results["bounce1"][0]["ms"]
 
-    # K1: the flagship frame, the instanced scene (TLAS leaves, transforms,
-    # restore on exit), and terrain320k, for which the JAX package leaves the
-    # triangles in device memory ('pallas_stream'): here that is this kernel
-    entry("K1", "sphere", check_sets("K1", "sphere"))
-    check_sets("K1", "instanced")
-    check_edges("K1", "sphere")
+    # K1, with each of its two triangle tests: the flagship frame, the
+    # instanced scene (TLAS leaves, transforms, restore on exit) and the
+    # textured mitsuba scene (2,564 triangles, curved meshes)
+    for fam in ("K1", "K1hh"):
+        entry(fam, "sphere", check_sets(fam, "sphere"))
+        check_sets(fam, "instanced")
+        check_sets(fam, "mitsuba")
+        check_edges(fam, "sphere")
+    # terrain320k, for which the JAX package leaves the triangles in device
+    # memory ('pallas_stream'): here that is this kernel
     check_sets("K1", "terrain320k")
     # K2 and K3, the big-scene kernels: instances inside wide nodes, then the
     # 819k-triangle terrain at the big-scene frame's own shapes
@@ -516,13 +630,15 @@ def phase_kernels(ctx):
     for e in entries.values():
         own = [
             c for c in checks
-            if c["kernel"] == e["kernel"] and c["any_hit"] == e["name"].endswith("any_hit")
+            if c["kernel"] == e["kernel"] and c["any_hit"] == e["any_hit"]
         ]
         e["max_abs_err"] = max(c["max_abs_err"] for c in own)
         e["mismatched_lanes"] = sum(c["mismatched_lanes"] for c in own)
     emit(
         "kernels", checks=checks, against_k1=crosses,
-        limits={"t_rtol": T_RTOL, "t_atol": T_ATOL, "max_mismatch_share": MAX_MISMATCH_SHARE},
+        limits={"t_rtol": T_RTOL, "t_atol": T_ATOL, "max_mismatch_share": MAX_MISMATCH_SHARE,
+                "hh_t_rtol": HH_T_RTOL, "hh_t_atol": HH_T_ATOL},
+        against_k1_rules=AGAINST_K1,
     )
     return entries
 
@@ -540,7 +656,7 @@ def phase_grid(ctx):
         sr = ctx[scene_name]
         # what 'auto' picks for this scene: K2's closures carry their packed
         # scene, K1's wrapper is the module's own function
-        closest, _ = make_intersectors(sr.S, "auto")
+        closest, _ = make_intersectors(sr.S, "auto", tri_test="mt")
         auto[scene_name] = "K2" if "p8n_nodes" in getattr(closest, "packed", ()) else "K1"
         want = "K2" if sr.S["tri_v0"].shape[0] >= AUTO_WIDE_MIN_TRIS else "K1"
         if auto[scene_name] != want or (want == "K1" and closest is not intersect_cuda.closest_hit):
@@ -560,32 +676,44 @@ def phase_grid(ctx):
     emit("grid", cells=cells, auto=auto)
 
 
-def phase_golden(sphere):
+def phase_golden(scenes):
+    """32x32 renders through K1, with each of its triangle tests, against the
+    accumulators the JAX package rendered: the untextured sphere and the
+    textured mitsuba scene."""
     from polaris_tpu_torch.render.integrator import TorchRenderer
     from polaris_tpu_torch.render.options import RenderOptions
 
-    path = os.path.join(HERE, "tests", "fixtures", "torch_golden_sphere_32.npz")
-    fx = np.load(path)
-    opt = RenderOptions(
-        width=int(fx["width"]), height=int(fx["height"]), spp=int(fx["spp"]),
-        num_bounces=int(fx["num_bounces"]),
-        min_bounces_for_rr=int(fx["min_bounces_for_rr"]), seed=int(fx["seed"]),
-    )
-    got = TorchRenderer(sphere, mode="kernel").render_accum(opt).cpu().numpy()
-    ref = fx["accum"]
-    if got.shape != ref.shape or not np.isfinite(got).all():
-        fail("golden: wrong shape or non-finite accumulator")
-    # a lane whose RR / branch decision flips on an ulp changes its pixel by
-    # far more than any tolerance: such pixels are counted, at most 0.5%
-    bad = (~np.isclose(got, ref, atol=1e-4, rtol=1e-3)).any(axis=-1)
-    allowed = int(0.005 * bad.size)
-    emit(
-        "golden", pixels=int(bad.size), outside_tolerance=int(bad.sum()),
-        allowed=allowed, max_abs_diff=float(np.abs(got - ref).max()),
-        atol=1e-4, rtol=1e-3,
-    )
-    if int(bad.sum()) > allowed:
-        fail(f"golden: {int(bad.sum())} pixels outside tolerance (> {allowed})")
+    rows = []
+    for name in ("sphere", "mitsuba"):
+        path = os.path.join(HERE, "tests", "fixtures", f"torch_golden_{name}_32.npz")
+        fx = np.load(path)
+        opt = RenderOptions(
+            width=int(fx["width"]), height=int(fx["height"]), spp=int(fx["spp"]),
+            num_bounces=int(fx["num_bounces"]),
+            min_bounces_for_rr=int(fx["min_bounces_for_rr"]), seed=int(fx["seed"]),
+        )
+        ref = fx["accum"]
+        for tri_test in ("mt", "hh"):
+            renderer = TorchRenderer(scenes[name], mode="kernel", tri_test=tri_test)
+            got = renderer.render_accum(opt).cpu().numpy()
+            if got.shape != ref.shape or not np.isfinite(got).all():
+                fail(f"golden/{name}/{tri_test}: wrong shape or non-finite accumulator")
+            # a lane whose RR / branch decision flips on an ulp changes its
+            # pixel by far more than any tolerance: such pixels are counted,
+            # at most 0.5%
+            bad = (~np.isclose(got, ref, atol=1e-4, rtol=1e-3)).any(axis=-1)
+            allowed = int(0.005 * bad.size)
+            rows.append({
+                "scene": name, "tri_test": tri_test, "pixels": int(bad.size),
+                "outside_tolerance": int(bad.sum()), "allowed": allowed,
+                "max_abs_diff": float(np.abs(got - ref).max()),
+            })
+            if int(bad.sum()) > allowed:
+                fail(
+                    f"golden/{name}/{tri_test}: {int(bad.sum())} pixels outside "
+                    f"tolerance (> {allowed})"
+                )
+    emit("golden", renders=rows, atol=1e-4, rtol=1e-3)
 
 
 def phase_flagship(sphere, smi: str):
@@ -618,21 +746,30 @@ def phase_flagship(sphere, smi: str):
         fail(f"flagship: unexpected image {img.shape} {img.dtype}")
     if img.min() == img.max():
         fail("flagship: constant image")
-    for name, count in launches.items():
-        if count <= 0:
+    for name in FAMILIES["K1"]["keys"]:
+        if launches[name] <= 0:
             fail(f"flagship: kernel entry point {name} was never launched")
     if launches["closest_hit"] != renderer.last_trips:
         fail("flagship: closest-hit launches differ from the loop's trip count")
 
-    # the same estimator through the plain traversal, on a smaller frame
+    # the same estimator through the kernel's plain version, on a smaller frame
+    from polaris_tpu_torch.ops.intersect import intersect_bvh
+
     small = RenderOptions(
         width=128, height=128, spp=4, num_bounces=BOUNCES,
         min_bounces_for_rr=RR_AFTER,
     )
     images = []
-    for mode in ("kernel", "bvh"):
-        r = TorchRenderer(sphere, mode=mode, regen=True)
+    for plain in (False, True):
+        r = TorchRenderer(sphere, mode="kernel", regen=True)
         r.spp_per_launch = 16
+        if plain:
+            r.closest = lambda S, *rays: intersect_bvh(
+                S, *rays, any_hit=False, leaf="det2"
+            )
+            r.any_hit = lambda S, *rays: intersect_bvh(
+                S, *rays, any_hit=True, leaf="det2"
+            ).mask
         images.append(r.render_u8(small).astype(np.int16))
     diff = np.abs(images[0] - images[1])
     off = int((diff > 0).any(axis=-1).sum())
@@ -668,6 +805,84 @@ def timed_frames(renderer, opt, module, reps: int):
         times.append(time.perf_counter() - t0)
         launches = dict(module.LAUNCHES)
     return min(times), times, img, launches
+
+
+def level_diff(img, base, label: str) -> dict:
+    """u8 level difference of two frames of one scene whose paths may part on
+    an ulp; fails when more than MAX_LEVEL_SHARE of the pixels are more than
+    one level apart."""
+    diff = np.abs(img.astype(np.int16) - base.astype(np.int16))
+    far = int((diff > 1).any(axis=-1).sum())
+    pixels = diff.shape[0] * diff.shape[1]
+    if far > MAX_LEVEL_SHARE * pixels:
+        fail(
+            f"{label}: {far} of {pixels} pixels differ by more than one level "
+            f"(allowed share {MAX_LEVEL_SHARE})"
+        )
+    return {
+        "max_level_diff": int(diff.max()),
+        "pixels_differing": int((diff > 0).any(axis=-1).sum()),
+        "pixels_over_one_level": far,
+        "mean_level_diff": float(diff.mean()),
+    }
+
+
+def phase_configs(scenes, smi: str):
+    """This slice's path at full width: the five benchmark configurations,
+    each through ``TorchRenderer(mode="auto", regen=True)`` and ``render_u8``,
+    then sphere and mitsuba once more through the Havel-Herout test. Returns
+    K1's launch counts: the default test's from the last frame of the
+    flagship configuration, the Havel-Herout test's from its sphere frame."""
+    from polaris_tpu_torch.ops import intersect_cuda
+    from polaris_tpu_torch.render.integrator import TorchRenderer
+    from polaris_tpu_torch.render.options import RenderOptions
+
+    def run(name, w, h, spp, tri_test, reps):
+        renderer = TorchRenderer(scenes[name], mode="auto", regen=True, tri_test=tri_test)
+        renderer.spp_per_launch = 16
+        opt = RenderOptions(
+            width=w, height=h, spp=spp, num_bounces=BOUNCES,
+            min_bounces_for_rr=RR_AFTER,
+        )
+        best, times, img, counts = timed_frames(renderer, opt, intersect_cuda, reps)
+        label = f"configs/{name}/{tri_test}"
+        if img.shape != (h, w, 3) or img.dtype != np.uint8:
+            fail(f"{label}: unexpected image {img.shape} {img.dtype}")
+        if not img.mean() > 1.0:
+            fail(f"{label}: black image (mean {img.mean():.3f})")
+        keys = FAMILIES["K1hh" if tri_test == "hh" else "K1"]["keys"]
+        for key, count in counts.items():
+            if (count > 0) != (key in keys):
+                fail(f"{label}: entry point {key} launched {count} times")
+        if counts[keys[0]] != renderer.last_trips:
+            fail(f"{label}: closest-hit launches differ from the loop's trip count")
+        rays = w * h * spp * BOUNCES * 2
+        row = {
+            "scene": name, "frame": f"{w}x{h}x{spp}spp", "tri_test": tri_test,
+            "triangles": int(scenes[name].tri_v0.shape[0]),
+            "frame_ms": best * 1e3, "frame_ms_all": [t * 1e3 for t in times],
+            "mrays_per_s": rays / best / 1e6, "trips": renderer.last_trips,
+            "launches": {k: counts[k] for k in keys},
+            "image_mean": float(img.mean()),
+        }
+        return row, img, counts
+
+    rows, images, launches = [], {}, {}
+    for name, w, h, spp in CONFIGS:
+        row, images[name], counts = run(name, w, h, spp, "mt", 1 if spp >= 128 else 2)
+        rows.append(row)
+        if name == "sphere":
+            launches.update({k: counts[k] for k in FAMILIES["K1"]["keys"]})
+    for name, w, h, spp in CONFIGS:
+        if name not in ("sphere", "mitsuba"):
+            continue
+        row, img, counts = run(name, w, h, spp, "hh", 1)
+        row["against_mt"] = level_diff(img, images[name], f"configs/{name}: hh against mt")
+        rows.append(row)
+        if name == "sphere":
+            launches.update({k: counts[k] for k in FAMILIES["K1hh"]["keys"]})
+    emit("configs", card=smi, bounces=BOUNCES, rr_after=RR_AFTER, rows=rows)
+    return launches
 
 
 def phase_bigscene(terrain, cornell, smi: str):
@@ -726,14 +941,13 @@ def phase_bigscene(terrain, cornell, smi: str):
         for name, count in counts.items():
             if count <= 0:
                 fail(f"bigscene/{mode}: {fam} {name} was never launched")
-        diff = np.abs(img.astype(np.int16) - base)
-        if int(diff.max()) > 1:
-            fail(f"bigscene/{mode}: image differs from mode 'kernel' by {int(diff.max())} levels")
+        # K4 divides per triangle and K5 once per ray where K1 divides once
+        # per leaf: a hit may move by an ulp, and a path whose Russian
+        # roulette or branch pick flips on it changes its pixel outright
+        levels = level_diff(img, base, f"bigscene/{mode} against mode 'kernel'")
         launches[fam] = counts
         cornell_checks[mode] = {
-            "kernel": fam, "frame_ms": best * 1e3, "launches": counts,
-            "max_level_diff": int(diff.max()),
-            "pixels_differing": int((diff > 0).any(axis=-1).sum()),
+            "kernel": fam, "frame_ms": best * 1e3, "launches": counts, **levels,
         }
     emit(
         "bigscene", card=smi, scene=f"terrain grid {BIG_GRID}",
@@ -757,6 +971,8 @@ def main() -> int:
 
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
+    # every renderer below names its triangle test or means the default one
+    os.environ.pop("POLARIS_TRI_TEST", None)
     smi = nvidia_smi_line()
     emit(
         "device", card=smi, torch=torch.__version__, cuda=torch.version.cuda,
@@ -779,6 +995,8 @@ def main() -> int:
         ("sphere", lambda: load_scene("sphere")),
         ("instanced", lambda: load_scene("instanced")),
         ("cornell", lambda: load_scene("cornell")),
+        ("mitsuba", lambda: load_scene("mitsuba")),
+        ("dispersive", lambda: load_scene("dispersive")),
         ("terrain20k", lambda: compile_scene(make_terrain_scene(grid=100))),
         ("terrain80k", lambda: compile_scene(make_terrain_scene(grid=200))),
         ("terrain320k", lambda: compile_scene(make_terrain_scene(grid=STREAM_GRID))),
@@ -794,7 +1012,7 @@ def main() -> int:
                 name, scenes[name],
                 SMALL_FRAME if name in ("instanced", "cornell") else FRAME,
             )
-            for name in scenes
+            for name in scenes if name != "dispersive"
         }
         big = ctx["terrain819k"]
         emit(
@@ -812,12 +1030,16 @@ def main() -> int:
         phase_grid(ctx)
         del ctx, big
         torch.cuda.empty_cache()
-        phase_golden(scenes["sphere"])
-        launches = {"K1": phase_flagship(scenes["sphere"], smi)}
-        launches.update(phase_bigscene(scenes["terrain819k"], scenes["cornell"], smi))
+        phase_golden(scenes)
+        phase_flagship(scenes["sphere"], smi)
+        launches = phase_bigscene(scenes["terrain819k"], scenes["cornell"], smi)
+        # this slice's path; K1's counts in the kernels line are read here,
+        # around one frame of the flagship configuration per triangle test
+        k1 = phase_configs(scenes, smi)
+        launches["K1"] = launches["K1hh"] = k1
     for e in entries.values():
         e["launches"] = launches[e["kernel"]][
-            "any_hit" if e["name"].endswith("any_hit") else "closest_hit"
+            FAMILIES[e["kernel"]]["keys"][1 if e["any_hit"] else 0]
         ]
         if e["launches"] <= 0:
             fail(f"kernel entry point {e['name']} was never launched by a render path")

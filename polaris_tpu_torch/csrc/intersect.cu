@@ -1,10 +1,12 @@
 // Two-level BVH traversal for NVIDIA Hopper (sm_90a): closest hit and any hit.
 //
-// Replaces the TPU kernel polaris_tpu/ops/intersect_pallas.py::_kernel (the
-// default Moller-Trumbore, resident-triangle variant). That kernel walks a
-// 1024-ray tile with ONE shared stack on the scalar core and votes across
-// the tile at every node, because a TPU has no per-lane control flow. None
-// of that staging is carried over. What is kept is what it computes:
+// Replaces the TPU kernel polaris_tpu/ops/intersect_pallas.py::_kernel, with
+// both of its triangle tests: the default Moller-Trumbore (`mt`) and the
+// Havel-Herout precomputed planes (`hh`, chosen when the scene is packed).
+// That kernel walks a 1024-ray tile with ONE shared stack on the scalar core
+// and votes across the tile at every node, because a TPU has no per-lane
+// control flow. None of that staging is carried over. What is kept is what
+// it computes:
 //
 //   * closest hit / any hit over a TLAS of instances and one BLAS per mesh;
 //     a TLAS leaf transforms the ray by the instance's 3x4 world->object
@@ -12,8 +14,12 @@
 //     watermark `msbi`)
 //   * slab test with a 1e-30 direction floor; a child is skipped when
 //     tf < 0 | tn > tf | tn >= best
-//   * Moller-Trumbore with |det| >= EPS, 0 <= u <= 1, v >= 0, u + v <= 1,
-//     t > EPS, and a strict t < best update (first of two equal hits wins)
+//   * the leaf arithmetic, det^2-scaled in both tests: numerators u*det,
+//     v*det, t*det over det^2 >= EPS^2, 0 <= u_num <= det^2, v_num >= 0,
+//     u_num + v_num <= det^2, t_num > EPS*det^2; the best hit compared by
+//     cross-multiplication (strict: the first of two equal hits wins), the
+//     denominator reset to 1 at every leaf and ONE divide when a leaf ends;
+//     any hit compares t_num < maxt*det^2 and never divides
 //   * inactive lanes return found = 0, t = 0
 //
 // Design: ONE THREAD PER RAY. Each thread owns a 64-entry stack in local
@@ -32,12 +38,13 @@
 // packet traversal, shared-memory staging and wide nodes are left out on
 // purpose.
 //
-// Triangle test: the QUOTIENT form (one divide per triangle, u = dot*inv_det)
-// exactly as the plain PyTorch version ops/intersect.py::intersect_bvh
-// writes it, not the det^2-scaled form of the TPU kernel. Every sum is
-// written in that version's association, and the file is compiled with
-// -fmad=false so each multiply and add rounds on its own as it does there:
-// kernel and plain version then take identical hit/miss decisions.
+// Triangle tests: LEAF_DET2 and LEAF_HH of traverse_common.cuh, exactly as
+// the plain PyTorch version ops/intersect.py::intersect_bvh writes them
+// (leaf="det2" over tri_v0/e1/e2, leaf="hh" over the (T,12) rows of
+// pack_tris_hh). Every sum is written in that version's association, and the
+// file is compiled with -fmad=false so each multiply and add rounds on its
+// own as it does there: kernel and plain version then take identical
+// hit/miss decisions.
 //
 // The ray, the slab test, the instance transform, the triangle test and the
 // launcher are shared with the package's other traversal kernels
@@ -61,7 +68,8 @@ struct Scene {
     const float* __restrict__ bvh_max;   // (N,3)
     const int* __restrict__ ldata;       // (N,)
     const int* __restrict__ rdata;       // (N,)
-    Tris tris;                           // tri_v0 / tri_e1 / tri_e2, each (T,3)
+    Tris tris;                           // tri_v0 / tri_e1 / tri_e2, each (T,3),
+                                         // or the (T,12) Havel-Herout rows
     const float* __restrict__ w2o;       // (I,4,4) row-major
     const int* __restrict__ roots;       // (I,)
     int num_inst;
@@ -76,7 +84,7 @@ __device__ __forceinline__ float node_slab(const Scene& s, int node,
                 __ldg(mx + 1), __ldg(mx + 2), best);
 }
 
-template <bool ANY_HIT>
+template <bool ANY_HIT, int LEAF>
 __global__ void __launch_bounds__(THREADS) traverse(Scene s, Rays rays) {
     int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= rays.n) return;
@@ -106,7 +114,7 @@ __global__ void __launch_bounds__(THREADS) traverse(Scene s, Rays rays) {
                     continue;
                 }
                 // BLAS leaf: rd triangles starting at -ld
-                if (test_leaf<ANY_HIT>(r, s.tris, -ld, rd, inst, best)) break;
+                if (test_leaf<ANY_HIT, LEAF>(r, s.tris, -ld, rd, inst, best)) break;
                 pop = true;
             } else {
                 // inner node: both children, near first
@@ -153,10 +161,34 @@ __global__ void __launch_bounds__(THREADS) traverse(Scene s, Rays rays) {
             num_inst                                                           \
     }
 
+// the same scene with the triangles as (T,12) Havel-Herout rows
+#define SCENE_HH_ARGS                                                          \
+    const float *bvh_min, const float *bvh_max, const int *ldata,              \
+        const int *rdata, const float *tri_rows, const float *w2o,             \
+        const int *roots, int num_tris, int num_inst
+#define SCENE_HH                                                               \
+    Scene {                                                                    \
+        bvh_min, bvh_max, ldata, rdata,                                        \
+            polaris::Tris{tri_rows, tri_rows + 4, tri_rows + 8, 12, num_tris}, \
+            w2o, roots, num_inst                                               \
+    }
+
 extern "C" int polaris_closest_hit(SCENE_ARGS, POLARIS_CLOSEST_ARGS) {
-    return polaris::launch(traverse<false>, SCENE, POLARIS_CLOSEST_RAYS, stream);
+    return polaris::launch(traverse<false, LEAF_DET2>, SCENE,
+                           POLARIS_CLOSEST_RAYS, stream);
 }
 
 extern "C" int polaris_any_hit(SCENE_ARGS, POLARIS_ANY_ARGS) {
-    return polaris::launch(traverse<true>, SCENE, POLARIS_ANY_RAYS, stream);
+    return polaris::launch(traverse<true, LEAF_DET2>, SCENE, POLARIS_ANY_RAYS,
+                           stream);
+}
+
+extern "C" int polaris_closest_hit_hh(SCENE_HH_ARGS, POLARIS_CLOSEST_ARGS) {
+    return polaris::launch(traverse<false, LEAF_HH>, SCENE_HH,
+                           POLARIS_CLOSEST_RAYS, stream);
+}
+
+extern "C" int polaris_any_hit_hh(SCENE_HH_ARGS, POLARIS_ANY_ARGS) {
+    return polaris::launch(traverse<true, LEAF_HH>, SCENE_HH, POLARIS_ANY_RAYS,
+                           stream);
 }

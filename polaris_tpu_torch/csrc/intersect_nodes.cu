@@ -11,8 +11,10 @@
 //     leaf of rd triangles from -ld
 //   * records numbered by BFS depth (host packer), so the top of the forest
 //     is one contiguous, always-cached range
-//   * the traversal order and results of the binary kernel (intersect.cu):
-//     near child first, strict t < best, ray restored at the stack watermark
+//   * the traversal order, the det^2-scaled leaf test (LEAF_DET2 of
+//     traverse_common.cuh) and so the results of the binary kernel
+//     (intersect.cu), bit for bit: near child first, strict best-hit update,
+//     ray restored at the stack watermark
 //
 // What is not carried over: the (8,128) ray tiles and their votes, the
 // resident SMEM prefix, the 2-way LRU window caches and their DMAs, the
@@ -51,6 +53,7 @@ struct Scene {
 
 template <bool ANY_HIT>
 __global__ void __launch_bounds__(THREADS) traverse(Scene s, Rays rays) {
+    constexpr int LEAF = LEAF_DET2;
     int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= rays.n) return;
 
@@ -81,7 +84,7 @@ __global__ void __launch_bounds__(THREADS) traverse(Scene s, Rays rays) {
                     continue;
                 }
                 // BLAS leaf: rd triangles starting at -ld
-                if (test_leaf<ANY_HIT>(r, s.tris, -ld, rd, inst, best)) break;
+                if (test_leaf<ANY_HIT, LEAF>(r, s.tris, -ld, rd, inst, best)) break;
                 pop = true;
             } else {
                 // inner node: both children's boxes are in the record

@@ -11,8 +11,9 @@
 //     2 triangle leaf, 3 instance), so index and node count stay below 2^22
 //   * one visit slab-tests all 8 children, continues at the nearest and
 //     pushes the rest in slot order (traverse_wide.cuh)
-//   * quotient-form Moller-Trumbore over the leaf's count triangles: the
-//     shared test of traverse_common.cuh, which is this TPU kernel's own form
+//   * quotient-form Moller-Trumbore over the leaf's count triangles
+//     (LEAF_QUOT of traverse_common.cuh): this TPU kernel, alone among the
+//     five, divides per triangle
 //
 // What is not carried over: the (8,128) ray tiles, the per-child tile-min
 // reductions (dmin_ref) that ordered a tile's shared stack, the SMEM copies
@@ -70,7 +71,7 @@ template <bool ANY_HIT>
 __global__ void __launch_bounds__(THREADS) traverse(Layout s, Rays rays) {
     int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= rays.n) return;
-    traverse_wide<ANY_HIT>(s, rays, i);
+    traverse_wide<ANY_HIT, LEAF_QUOT>(s, rays, i);
 }
 
 }  // namespace

@@ -15,9 +15,10 @@
 //     pushes the rest in slot order (traverse_wide.cuh)
 //
 // This is a second LAYOUT of the traversal body that intersect_wide8.cu
-// uses, in a library of its own. The leaf test is the shared quotient-form
-// test of traverse_common.cuh, not the TPU kernel's det^2-scaled tiers, so
-// every kernel of the package returns the same t, u, v bit for bit.
+// uses, in a library of its own, with the TPU kernel's own leaf arithmetic:
+// det^2-scaled Moller-Trumbore, the denominator reset at every leaf and one
+// divide when the leaf ends (LEAF_DET2 of traverse_common.cuh). On the same
+// triangle it returns the binary kernels' t, u, v bit for bit.
 //
 // What is not carried over: the (8,128) ray tiles and their tile-min
 // reductions, the resident SMEM prefix of nodes, the 2-way LRU window caches
@@ -79,7 +80,7 @@ template <bool ANY_HIT>
 __global__ void __launch_bounds__(THREADS) traverse(Layout s, Rays rays) {
     int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= rays.n) return;
-    traverse_wide<ANY_HIT>(s, rays, i);
+    traverse_wide<ANY_HIT, LEAF_DET2>(s, rays, i);
 }
 
 }  // namespace

@@ -9,17 +9,28 @@
 //   * the slab test: a box is skipped when tf < 0 | tn > tf | tn >= best
 //   * the move into an instance's space by a row-major 3x4 world->object
 //     matrix
-//   * the triangle test: QUOTIENT-form Moller-Trumbore with |det| >= EPS,
-//     0 <= u <= 1, v >= 0, u + v <= 1, EPS < t < best, and the leaf loop with
-//     its strict t < best update (the first of two equal hits wins)
+//   * the three leaf tests, chosen at compile time by a kernel's LEAF
+//     parameter, each the form its TPU kernel has:
+//       LEAF_QUOT  quotient-form Moller-Trumbore, one divide per triangle:
+//                  |det| >= EPS, 0 <= u <= 1, v >= 0, u + v <= 1,
+//                  EPS < t < best (plain version: ops/intersect.py::mt_block)
+//       LEAF_DET2  det^2-scaled Moller-Trumbore: numerators u*det, v*det,
+//                  t*det over the positive denominator det^2, the best hit
+//                  compared by cross-multiplication, ONE divide per leaf
+//                  (mt_block_det2)
+//       LEAF_HH    Havel-Herout precomputed planes on 12-float rows
+//                  [N, d0, N1, d1, N2, d2], det^2-scaled like LEAF_DET2
+//                  (hh_block)
+//     all with strict updates: the first of two equal hits wins
 //   * loading a ray and storing a hit (inactive lanes: found = 0, t = 0)
 //
 // Every sum is written in the association of the plain PyTorch versions
 // (ops/intersect.py), and every file that includes this header is compiled
 // with -fmad=false, so that each multiply and add rounds on its own as it
-// does there. Because all kernels call this one triangle test, they take
-// identical hit/miss decisions and return identical t, u, v: a closest hit
-// depends on the visit order only on an exact tie in t.
+// does there: one contracted multiply-add in a numerator that feeds a compare
+// would flip a lane. Kernels that share a leaf form take identical hit/miss
+// decisions on the same triangle; across forms t, u, v differ by an ulp or
+// so and a near-tie may keep another triangle.
 
 #pragma once
 
@@ -30,6 +41,11 @@ namespace polaris {
 
 constexpr int THREADS = 128;
 constexpr float EPS = 1e-5f;
+// EPS * EPS as the TPU kernels spell it: the product in double, then rounded
+constexpr float EPS2 = (float)(1e-5 * 1e-5);
+
+// the leaf forms (see the head of this file)
+constexpr int LEAF_QUOT = 0, LEAF_DET2 = 1, LEAF_HH = 2;
 constexpr float FLT_MAX_F = 3.4028235e38f;
 
 struct Ray {
@@ -52,7 +68,9 @@ struct Rays {
 };
 
 // triangles as three base pointers and a common stride in floats: separate
-// (T,3) arrays have stride 3, one packed (T,9) array [v0, e1, e2] stride 9
+// (T,3) arrays have stride 3, one packed (T,9) array [v0, e1, e2] stride 9;
+// Havel-Herout rows (T,12) are three groups of four, [N d0], [N1 d1], [N2 d2],
+// stride 12
 struct Tris {
     const float* __restrict__ v0;
     const float* __restrict__ e1;
@@ -116,13 +134,13 @@ __device__ __forceinline__ void to_instance(Ray& r, const float* m) {
             (m8 * qx + m9 * qy) + m10 * qz);
 }
 
-// `count` triangles from `first` against the ray. Closest hit keeps the
-// nearest in `best`; any hit returns at the first one. Returns true when an
-// any-hit query is settled.
+// `count` triangles from `first` against the ray, quotient form. Closest hit
+// keeps the nearest in `best`; any hit returns at the first one. Returns true
+// when an any-hit query is settled.
 template <bool ANY_HIT>
-__device__ __forceinline__ bool test_leaf(const Ray& r, const Tris& tris,
-                                          int first, int count, int inst,
-                                          Best& best) {
+__device__ __forceinline__ bool test_leaf_quot(const Ray& r, const Tris& tris,
+                                               int first, int count, int inst,
+                                               Best& best) {
     for (int j = 0; j < count; ++j) {
         const int tri = min(first + j, tris.count - 1);
         const size_t at = (size_t)tri * tris.stride;
@@ -161,6 +179,131 @@ __device__ __forceinline__ bool test_leaf(const Ray& r, const Tris& tris,
         }
     }
     return false;
+}
+
+// The geometry half of a det^2-scaled test of triangle `tri`: numerators
+// u*det, v*det, t*det and the denominator det^2; true when the ray meets the
+// triangle's plane inside it and in front of the origin. LEAF_DET2 is
+// Moller-Trumbore on [v0, e1, e2]; LEAF_HH the plane equations of a 12-float
+// row, with the hit point scaled by det: P' = det*o + t_raw*d.
+template <int LEAF>
+__device__ __forceinline__ bool scaled_tests(const Ray& r, const Tris& tris,
+                                             int tri, float& u_num,
+                                             float& v_num, float& t_num,
+                                             float& det_a) {
+    const size_t at = (size_t)tri * tris.stride;
+    if constexpr (LEAF == LEAF_HH) {
+        const float4 n = __ldg(reinterpret_cast<const float4*>(tris.v0 + at));
+        const float4 n1 = __ldg(reinterpret_cast<const float4*>(tris.e1 + at));
+        const float4 n2 = __ldg(reinterpret_cast<const float4*>(tris.e2 + at));
+        float det = (r.dx * n.x + r.dy * n.y) + r.dz * n.z;
+        float t_raw = n.w - ((r.ox * n.x + r.oy * n.y) + r.oz * n.z);
+        det_a = det * det;
+        bool ok = det_a >= EPS2;
+        float hx = det * r.ox + t_raw * r.dx;
+        float hy = det * r.oy + t_raw * r.dy;
+        float hz = det * r.oz + t_raw * r.dz;
+        u_num = (((n1.x * hx + n1.y * hy) + n1.z * hz) + det * n1.w) * det;
+        v_num = (((n2.x * hx + n2.y * hy) + n2.z * hz) + det * n2.w) * det;
+        ok &= (u_num >= 0.0f) & (v_num >= 0.0f) & (u_num + v_num <= det_a);
+        t_num = t_raw * det;
+        ok &= t_num > EPS * det_a;
+        return ok;
+    } else {
+        const float* p0 = tris.v0 + at;
+        const float* p1 = tris.e1 + at;
+        const float* p2 = tris.e2 + at;
+        float e2x = __ldg(p2 + 0), e2y = __ldg(p2 + 1), e2z = __ldg(p2 + 2);
+        float e1x = __ldg(p1 + 0), e1y = __ldg(p1 + 1), e1z = __ldg(p1 + 2);
+        // pvec = d x e2
+        float pvx = r.dy * e2z - r.dz * e2y;
+        float pvy = r.dz * e2x - r.dx * e2z;
+        float pvz = r.dx * e2y - r.dy * e2x;
+        float det = (e1x * pvx + e1y * pvy) + e1z * pvz;
+        det_a = det * det;
+        bool ok = det_a >= EPS2;
+        float tvx = r.ox - __ldg(p0 + 0), tvy = r.oy - __ldg(p0 + 1),
+              tvz = r.oz - __ldg(p0 + 2);
+        u_num = ((tvx * pvx + tvy * pvy) + tvz * pvz) * det;
+        ok &= (u_num >= 0.0f) & (u_num <= det_a);
+        // qvec = tvec x e1
+        float qvx = tvy * e1z - tvz * e1y;
+        float qvy = tvz * e1x - tvx * e1z;
+        float qvz = tvx * e1y - tvy * e1x;
+        v_num = ((r.dx * qvx + r.dy * qvy) + r.dz * qvz) * det;
+        ok &= (v_num >= 0.0f) & (u_num + v_num <= det_a);
+        t_num = ((e2x * qvx + e2y * qvy) + e2z * qvz) * det;
+        ok &= t_num > EPS * det_a;
+        return ok;
+    }
+}
+
+// `count` triangles from `first` through a det^2-scaled test, WITHOUT the
+// closing divide. While it runs, best.t / best.u / best.v hold numerators
+// over `den` (a quotient over den = 1 on entry). Closest hit accepts a
+// triangle when t_num * den < best.t * det_a; with best.t = FLT_MAX the right
+// side overflows to +inf and the compare still holds, as IEEE arithmetic has
+// it. Any hit compares t_num < maxt * det_a and returns at the first one.
+// `accepted` is set when the best hit changed.
+template <bool ANY_HIT, int LEAF>
+__device__ __forceinline__ bool scan_scaled(const Ray& r, const Tris& tris,
+                                            int first, int count, int inst,
+                                            Best& best, float& den,
+                                            bool& accepted) {
+    for (int j = 0; j < count; ++j) {
+        const int tri = min(first + j, tris.count - 1);
+        float u_num, v_num, t_num, det_a;
+        bool ok = scaled_tests<LEAF>(r, tris, tri, u_num, v_num, t_num, det_a);
+        if (ANY_HIT) {
+            ok &= t_num < best.t * det_a;
+            if (ok) {
+                best.found = true;
+                return true;
+            }
+        } else {
+            ok &= t_num * den < best.t * det_a;
+            if (ok) {
+                best.found = true;
+                accepted = true;
+                best.t = t_num;
+                den = det_a;
+                best.u = u_num;
+                best.v = v_num;
+                best.tri = tri;
+                best.inst = inst;
+            }
+        }
+    }
+    return false;
+}
+
+// numerators over `den` back to quotients: one divide
+__device__ __forceinline__ void to_quotients(Best& best, float den) {
+    const float inv = 1.0f / den;
+    best.t = best.t * inv;
+    best.u = best.u * inv;
+    best.v = best.v * inv;
+}
+
+// One leaf visit in the kernel's leaf form. The scaled forms start every
+// leaf at den = 1 and divide at its end, so between leaves best.t is a
+// quotient; the divide is skipped when no triangle of the leaf was accepted
+// (x * (1 / 1) is x exactly).
+template <bool ANY_HIT, int LEAF>
+__device__ __forceinline__ bool test_leaf(const Ray& r, const Tris& tris,
+                                          int first, int count, int inst,
+                                          Best& best) {
+    if constexpr (LEAF == LEAF_QUOT) {
+        return test_leaf_quot<ANY_HIT>(r, tris, first, count, inst, best);
+    } else {
+        float den = 1.0f;
+        bool accepted = false;
+        if (scan_scaled<ANY_HIT, LEAF>(r, tris, first, count, inst, best, den,
+                                       accepted))
+            return true;
+        if (accepted) to_quotients(best, den);
+        return false;
+    }
 }
 
 template <bool ANY_HIT>

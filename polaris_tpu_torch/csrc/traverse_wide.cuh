@@ -17,7 +17,9 @@
 //   instance (3)  move the ray into instance idx's space, remember the stack
 //                 height (watermark msbi), continue at inst_entry(idx), which
 //                 is a wide node or, for a one-leaf mesh, a triangle leaf
-//   leaf (2)      cnt triangles from idx through the shared triangle test
+//   leaf (2)      cnt triangles from idx through the kernel's leaf test
+//                 (LEAF: quotient form in intersect_wide8.cu, det^2-scaled
+//                 in intersect_wide8_nodes.cu, as their TPU kernels)
 //   wide node (1) slab-test the 8 children; continue at the nearest hit
 //                 child (the first of equal distances) and push the other
 //                 hit children in slot order
@@ -41,7 +43,7 @@ constexpr int WIDE_STACK = 96;
 constexpr int WIDTH = 8;
 constexpr int T_EMPTY = 0, T_WIDE = 1, T_BOT = 2, T_TOP = 3;
 
-template <bool ANY_HIT, typename Layout>
+template <bool ANY_HIT, int LEAF, typename Layout>
 __device__ __forceinline__ void traverse_wide(const Layout& s, const Rays& rays,
                                               int i) {
     Best best{0.0f, 0.0f, 0.0f, 0, 0, false};
@@ -67,7 +69,7 @@ __device__ __forceinline__ void traverse_wide(const Layout& s, const Rays& rays,
                 entry = s.inst_entry(id);
                 continue;
             } else if (typ == T_BOT) {
-                if (test_leaf<ANY_HIT>(r, s.tris, idx, cnt, inst, best)) break;
+                if (test_leaf<ANY_HIT, LEAF>(r, s.tris, idx, cnt, inst, best)) break;
                 pop = true;
             } else if (typ == T_WIDE) {
                 uint32_t ent[WIDTH];

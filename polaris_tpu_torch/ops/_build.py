@@ -88,7 +88,7 @@ def build_libraries(sources: Sequence[str], extra_flags: Sequence[str] = ()) -> 
     output if any fails."""
     running = []
     seconds = {}
-    for source in sources:
+    for source in dict.fromkeys(sources):  # a source named twice builds once
         out, tmp, args = _plan(source, extra_flags)
         if os.path.exists(out):
             seconds[source] = 0.0

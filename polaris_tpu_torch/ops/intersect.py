@@ -14,10 +14,25 @@ reference's traversal kernels (``CL/kernels/intersect.cl``):
 ``intersect_bvh`` is the PLAIN VERSION of the CUDA traversal kernel
 (``ops/intersect_cuda.py`` / ``csrc/intersect.cu``): the same per-ray
 algorithm — private stack, near-child-first by the ray's own slab entry
-distances, quotient-form Möller–Trumbore, strict ``<`` best-hit updates —
-with every lane advanced in lock step by a host loop. Its float operations
-are written in the same association as the kernel's, so the two agree bit
-for bit wherever the device rounds each multiply and add separately.
+distances, strict best-hit updates — with every lane advanced in lock step
+by a host loop. Its float operations are written in the same association as
+the kernel's, so the two agree bit for bit wherever the device rounds each
+multiply and add separately.
+
+Three LEAF TESTS, each mirrored operation for operation by a device helper
+of ``csrc/traverse_common.cuh`` and taken by every plain traversal through a
+``leaf=`` argument:
+
+  ``"quot"``  ``mt_block``: quotient-form Möller–Trumbore, one divide per
+              triangle. The form of the 8-wide TPU kernel with resident
+              nodes (K4) and of the JAX package's non-Pallas traversals;
+              ``mode="bvh"`` runs it
+  ``"det2"``  ``mt_block_det2``: det²-scaled Möller–Trumbore, the form of
+              the TPU kernels K1, K2, K3 and K5: numerators over ``det²``,
+              the best hit compared by cross-multiplication, one divide per
+              leaf
+  ``"hh"``    ``hh_block``: Havel–Herout precomputed planes on the 12-float
+              rows of ``pack_tris_hh``, det²-scaled alike; K1's second test
 
 Each trip of the host loop advances every live lane by one node: an inner
 node slab-tests both children, a TLAS leaf enters an instance, a BLAS leaf
@@ -28,8 +43,10 @@ sequential strict-``<`` result).
 
 from __future__ import annotations
 
+import os
 from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from . import vec as V
@@ -103,8 +120,8 @@ def mt_block(T: TriArrays, tri, valid, o, d, best_t, *, closest: bool):
     order — what sequential strict-``<`` updates would keep. Without
     ``closest`` (any hit) ``t, u, v`` are ``None`` and ``tri`` is the first
     accepted triangle in block order, where a sequential test would stop.
-    This is the one triangle test of the package: the CUDA kernels' device
-    helper (csrc/traverse_common.cuh) repeats it in the same association.
+    The device helper ``test_leaf_quot`` of csrc/traverse_common.cuh repeats
+    it in the same association.
     """
     v0 = T.v0[tri]
     e1 = T.e1[tri]
@@ -141,13 +158,177 @@ def mt_block(T: TriArrays, tri, valid, o, d, best_t, *, closest: bool):
     )
 
 
-def mt_leaves(T: TriArrays, first, cnt, o, d, best_t, *, closest: bool):
-    """``mt_block`` on each ray's own run ``[first, first + cnt)``."""
+class HHRows(NamedTuple):
+    """Triangles as ``[T,12]`` Havel–Herout rows ``[N, d0, N1, d1, N2, d2]``
+    (``pack_tris_hh``)."""
+
+    rows: torch.Tensor
+
+
+def pack_tris_hh(scene) -> np.ndarray:
+    """Havel–Herout per-triangle constants, 12 f32 each, flat: the
+    unnormalized normal ``N`` with plane offset ``d0 = N·v0``, and the two
+    barycentric plane equations ``N1 = (e2×N)/|N|²``, ``d1 = −N1·v0`` and
+    ``N2 = (N×e1)/|N|²``, ``d2 = −N2·v0``, computed in f64 and rounded once.
+    ``|N|²`` of a degenerate triangle is floored so the rows stay finite; the
+    test's ``det² >= EPS²`` rejects it. ``scene`` holds ``tri_v0``,
+    ``tri_e1``, ``tri_e2`` as arrays. Equal, array for array, to the JAX
+    package's ``intersect_pallas._pack_tris_hh``."""
+    v0 = np.asarray(scene.tri_v0).astype(np.float64)
+    e1 = np.asarray(scene.tri_e1).astype(np.float64)
+    e2 = np.asarray(scene.tri_e2).astype(np.float64)
+    n = np.cross(e1, e2)
+    nn = np.maximum((n * n).sum(axis=1, keepdims=True), 1e-300)
+    n1 = np.cross(e2, n) / nn
+    n2 = np.cross(n, e1) / nn
+    d0 = (n * v0).sum(axis=1, keepdims=True)
+    d1 = -(n1 * v0).sum(axis=1, keepdims=True)
+    d2 = -(n2 * v0).sum(axis=1, keepdims=True)
+    return (
+        np.concatenate([n, d0, n1, d1, n2, d2], axis=1)
+        .astype(np.float32)
+        .reshape(-1)
+    )
+
+
+_EPS2 = V.INTERSECTION_EPSILON * V.INTERSECTION_EPSILON
+
+
+def _mt_tests_det2(T: TriArrays, tri, o, d):
+    """The geometry half of the det²-scaled Möller–Trumbore test: ``(ok,
+    u_num, v_num, t_num, det_a)`` per ray and triangle, numerators scaled by
+    ``det`` over the positive denominator ``det_a = det²`` (no divide, no
+    sign)."""
+    v0 = T.v0[tri]
+    e1 = T.e1[tri]
+    e2 = T.e2[tri]
+    co = o[:, None, :]
+    cd = d[:, None, :].expand_as(v0)
+    pvec = V.cross3(cd, e2)
+    det = V.dot3(e1, pvec)
+    det_a = det * det
+    ok = det_a >= _EPS2
+    tvec = co - v0
+    u_num = V.dot3(tvec, pvec) * det
+    ok &= (u_num >= 0.0) & (u_num <= det_a)
+    qvec = V.cross3(tvec, e1)
+    v_num = V.dot3(cd, qvec) * det
+    ok &= (v_num >= 0.0) & (u_num + v_num <= det_a)
+    t_num = V.dot3(e2, qvec) * det
+    ok &= t_num > V.INTERSECTION_EPSILON * det_a
+    return ok, u_num, v_num, t_num, det_a
+
+
+def _hh_tests(T: HHRows, tri, o, d):
+    """The Havel–Herout test on precomputed planes, det²-scaled: the same
+    ``(ok, u_num, v_num, t_num, det_a)`` as ``_mt_tests_det2``, with the hit
+    point scaled by ``det``: ``P' = det*o + t_raw*d``."""
+    row = T.rows[tri]
+    n, d0 = row[..., 0:3], row[..., 3]
+    n1, d1 = row[..., 4:7], row[..., 7]
+    n2, d2 = row[..., 8:11], row[..., 11]
+    co = o[:, None, :].expand_as(n)
+    cd = d[:, None, :].expand_as(n)
+    det = V.dot3(cd, n)
+    t_raw = d0 - V.dot3(co, n)
+    det_a = det * det
+    ok = det_a >= _EPS2
+    h = det[..., None] * co + t_raw[..., None] * cd
+    u_num = (V.dot3(n1, h) + det * d1) * det
+    v_num = (V.dot3(n2, h) + det * d2) * det
+    ok &= (u_num >= 0.0) & (v_num >= 0.0) & (u_num + v_num <= det_a)
+    t_num = t_raw * det
+    ok &= t_num > V.INTERSECTION_EPSILON * det_a
+    return ok, u_num, v_num, t_num, det_a
+
+
+def scan_scaled(tests, tri, valid, best, *, closest: bool):
+    """The acceptance half of a det²-scaled leaf: the block's columns taken
+    IN ORDER, as the kernels' triangle loop takes them.
+
+    ``tests`` is ``(ok, u_num, v_num, t_num, det_a)`` [M,W]. Any hit
+    (``closest=False``): ``best`` is ``maxt`` [M]; a triangle is accepted when
+    ``t_num < maxt * det_a``; returns ``(hit, first accepted tri)``. Closest
+    hit: ``best`` is ``(t_num, den, u_num, v_num, tri)``, numerators over one
+    denominator; a triangle is accepted when ``t_num * den < best_t_num *
+    det_a`` and then takes their place. The compare is not transitive once it
+    rounds, so the columns are walked one after the other rather than reduced.
+    Returns ``(hit, best)`` without the closing divide. A best ``t`` of
+    ``FLT_MAX`` overflows the right side to ``+inf`` and the compare still
+    holds."""
+    ok, u_num, v_num, t_num, det_a = tests
+    ok = ok & valid
+    width = tri.shape[1]
+    if not closest:
+        ok &= t_num < best[:, None] * det_a
+        j = torch.arange(width, device=tri.device)
+        bj = torch.where(ok, j[None, :], width).min(dim=1).values
+        bj = torch.clamp(bj, max=width - 1)[:, None]
+        return ok.any(dim=1), tri.gather(1, bj)[:, 0]
+    bt, den, bu, bv, btri = best
+    hit = torch.zeros_like(ok[:, 0])
+    for j in range(width):
+        okj = ok[:, j] & (t_num[:, j] * den < bt * det_a[:, j])
+        bt = torch.where(okj, t_num[:, j], bt)
+        den = torch.where(okj, det_a[:, j], den)
+        bu = torch.where(okj, u_num[:, j], bu)
+        bv = torch.where(okj, v_num[:, j], bv)
+        btri = torch.where(okj, tri[:, j], btri)
+        hit = hit | okj
+    return hit, (bt, den, bu, bv, btri)
+
+
+def _scaled_block(tests, tri, valid, best_t, closest: bool):
+    """One leaf visit in a det²-scaled form: the denominator starts at 1 and
+    ONE divide at the end turns the numerators back into ``t, u, v``."""
+    if not closest:
+        hit, first = scan_scaled(tests, tri, valid, best_t, closest=False)
+        return hit, None, None, None, first
+    zero = torch.zeros_like(best_t)
+    start = (best_t, torch.ones_like(best_t), zero, zero, tri[:, 0])
+    hit, (bt, den, bu, bv, btri) = scan_scaled(
+        tests, tri, valid, start, closest=True
+    )
+    inv = 1.0 / den
+    return hit, bt * inv, bu * inv, bv * inv, btri
+
+
+def mt_block_det2(T: TriArrays, tri, valid, o, d, best_t, *, closest: bool):
+    """det²-scaled Möller–Trumbore of ``M`` rays against a block of triangles
+    each, the leaf arithmetic of the TPU kernels K1, K2, K3 (and, with the
+    denominator carried on, K5); arguments and results as ``mt_block``. A
+    triangle passes when ``det² >= EPS²``, ``0 <= u_num <= det²``,
+    ``v_num >= 0``, ``u_num + v_num <= det²`` and ``t_num > EPS*det²``; see
+    ``scan_scaled`` for the acceptance. The device helpers
+    ``scaled_tests<LEAF_DET2>`` / ``scan_scaled`` of csrc/traverse_common.cuh
+    repeat it in the same association."""
+    return _scaled_block(_mt_tests_det2(T, tri, o, d), tri, valid, best_t, closest)
+
+
+def hh_block(T: HHRows, tri, valid, o, d, best_t, *, closest: bool):
+    """Havel–Herout test of ``M`` rays against a block of 12-float rows each,
+    det²-scaled with the bookkeeping of ``mt_block_det2``; the device helper
+    is ``scaled_tests<LEAF_HH>``."""
+    return _scaled_block(_hh_tests(T, tri, o, d), tri, valid, best_t, closest)
+
+
+# leaf form -> its block test (see the module docstring)
+LEAF_TESTS = {"quot": mt_block, "det2": mt_block_det2, "hh": hh_block}
+
+
+def num_tris(T) -> int:
+    """Triangles in a ``TriArrays`` or ``HHRows``."""
+    return int(T[0].shape[0])
+
+
+def mt_leaves(T, first, cnt, o, d, best_t, *, closest: bool, leaf: str = "quot"):
+    """The ``leaf`` form's block test on each ray's own run
+    ``[first, first + cnt)``."""
     width = max(int(cnt.max()), 1)
     j = torch.arange(width, device=first.device)
-    tri = torch.clamp(first[:, None] + j[None, :], max=T.v0.shape[0] - 1)
+    tri = torch.clamp(first[:, None] + j[None, :], max=num_tris(T) - 1)
     valid = j[None, :] < cnt[:, None]
-    return mt_block(T, tri, valid, o, d, best_t, closest=closest)
+    return LEAF_TESTS[leaf](T, tri, valid, o, d, best_t, closest=closest)
 
 
 class Touched:
@@ -192,18 +373,20 @@ class BinaryLayout(NamedTuple):
     words (int64) and both children's boxes ([n,3] each, arbitrary on a
     leaf). ``w2o`` holds the rows of the 3x4 world->object matrices as
     ``[I, >=3, 4]``; ``roots`` the BLAS root node per instance;
-    ``num_nodes`` the length of the node array."""
+    ``num_nodes`` the length of the node array. ``tris`` is a ``TriArrays``,
+    or ``HHRows`` for the ``"hh"`` leaf form."""
 
     fetch: Callable
-    tris: TriArrays
+    tris: NamedTuple
     w2o: torch.Tensor
     roots: torch.Tensor
     num_nodes: int
 
 
-def scene_layout(S) -> BinaryLayout:
+def scene_layout(S, tris_hh: Optional[torch.Tensor] = None) -> BinaryLayout:
     """The uploaded scene's own arrays (separate ldata/rdata/min/max), as the
-    kernel ``csrc/intersect.cu`` reads them."""
+    kernel ``csrc/intersect.cu`` reads them; with ``tris_hh`` the triangles
+    are those flat Havel–Herout rows instead of ``tri_v0/e1/e2``."""
 
     def fetch(node):
         ld = S["bvh_ldata"][node].to(torch.int64)
@@ -215,31 +398,41 @@ def scene_layout(S) -> BinaryLayout:
             S["bvh_min"][rc], S["bvh_max"][rc],
         )
 
+    if tris_hh is None:
+        tris = TriArrays(S["tri_v0"], S["tri_e1"], S["tri_e2"])
+    else:
+        tris = HHRows(tris_hh.reshape(-1, 12))
     return BinaryLayout(
-        fetch, TriArrays(S["tri_v0"], S["tri_e1"], S["tri_e2"]),
-        S["inst_w2o"], S["inst_bvh_root"], int(S["bvh_ldata"].shape[0]),
+        fetch, tris, S["inst_w2o"], S["inst_bvh_root"],
+        int(S["bvh_ldata"].shape[0]),
     )
 
 
 def intersect_bvh(
-    S, o, d, maxt, active, *, any_hit: bool, stats: Optional[dict] = None
+    S, o, d, maxt, active, *, any_hit: bool, stats: Optional[dict] = None,
+    leaf: str = "quot", tris_hh: Optional[torch.Tensor] = None,
 ) -> Hit:
     """Two-level BVH traversal of the uploaded scene ``S`` for all lanes:
-    ``traverse_binary`` over ``scene_layout(S)``."""
+    ``traverse_binary`` over ``scene_layout(S)``. ``leaf="hh"`` needs the
+    rows of ``pack_tris_hh`` as ``tris_hh``."""
+    if (leaf == "hh") != (tris_hh is not None):
+        raise ValueError("leaf='hh' and the rows of pack_tris_hh go together")
     return traverse_binary(
-        scene_layout(S), o, d, maxt, active, any_hit=any_hit, stats=stats
+        scene_layout(S, tris_hh), o, d, maxt, active, any_hit=any_hit,
+        stats=stats, leaf=leaf,
     )
 
 
 def traverse_binary(
     L: BinaryLayout, o, d, maxt, active, *, any_hit: bool,
-    stats: Optional[dict] = None,
+    stats: Optional[dict] = None, leaf: str = "quot",
 ) -> Hit:
     """Two-level binary BVH traversal for all lanes, advanced in lock step.
 
     ``o, d`` [N,3] f32, ``maxt`` [N] f32, ``active`` [N] bool. Returns the
     closest hit per lane; with ``any_hit`` a lane stops at its first hit
-    with ``EPS < t < maxt`` and only ``mask`` is meaningful.
+    with ``EPS < t < maxt`` and only ``mask`` is meaningful. ``leaf`` names
+    the leaf test (``LEAF_TESTS``).
 
     ``stats``, when given, receives per-call totals of the work the
     traversal did on these rays, counted as one thread per ray would do it:
@@ -276,7 +469,7 @@ def traverse_binary(
     trips = 0
     touched = None
     if stats is not None:
-        touched = Touched(dev, L.num_nodes, L.tris.v0.shape[0], num_inst)
+        touched = Touched(dev, L.num_nodes, num_tris(L.tris), num_inst)
 
     while bool((phase != PHASE_DONE).any()):
         trips += 1
@@ -308,7 +501,7 @@ def traverse_binary(
             cnt = rd[idx]
             hit, bt, bu, bv, btri = mt_leaves(
                 L.tris, -ld[idx], cnt, cur_o[idx], cur_d[idx], best_t[idx],
-                closest=not any_hit,
+                closest=not any_hit, leaf=leaf,
             )
             if any_hit:
                 found[idx] = found[idx] | hit
@@ -400,8 +593,29 @@ MODES = (
 )
 
 
-def make_intersectors(S, mode: str = "auto"):
+TRI_TESTS = ("mt", "hh")
+
+
+def resolve_tri_test(tri_test: Optional[str]) -> str:
+    """``tri_test`` or, when it is ``None``, the environment variable
+    ``POLARIS_TRI_TEST`` (default ``mt``), read when the scene is packed as
+    the JAX package reads it."""
+    if tri_test is None:
+        tri_test = os.environ.get("POLARIS_TRI_TEST", "mt")
+    if tri_test not in TRI_TESTS:
+        raise ValueError(f"unknown triangle test {tri_test!r} ({' | '.join(TRI_TESTS)})")
+    return tri_test
+
+
+def make_intersectors(S, mode: str = "auto", tri_test: Optional[str] = None):
     """Build ``(closest_hit, any_hit)`` callables for an uploaded scene.
+
+    ``tri_test`` picks the binary kernel's triangle test: ``"mt"`` (det²-scaled
+    Möller–Trumbore over ``tri_v0/e1/e2``) or ``"hh"`` (Havel–Herout planes,
+    packed here into 12-float rows); ``None`` reads ``POLARIS_TRI_TEST``.
+    ``"hh"`` exists for the modes that run the binary kernel ('kernel',
+    'pallas_stream', and 'auto' where it resolves to it) and raises with any
+    other.
 
     mode (the names of the JAX package's ``make_intersectors`` where there
     is a counterpart):
@@ -420,10 +634,13 @@ def make_intersectors(S, mode: str = "auto"):
                       (``intersect_dense``)
       'hybrid'        'kernel' for primary rays; 'pallas_dense' for bounce
                       rays (``closest.closest_bounce``) and shadow rays
-      'bvh'           the plain PyTorch binary traversal above (any device)
+      'bvh'           the plain PyTorch binary traversal above with the
+                      quotient-form triangle test, as the JAX package's
+                      'bvh' (any device)
       'auto'          on a CUDA device 'pallas8_nodes' for a scene of
                       ``AUTO_WIDE_MIN_TRIS`` triangles or more, else 'kernel';
-                      on the CPU 'bvh'
+                      on the CPU the binary kernel's wrappers, which run its
+                      plain version there
 
     The scene is packed once here, on the host, and the packed arrays are
     uploaded to the scene's device. A mode with a CUDA kernel runs that
@@ -434,13 +651,21 @@ def make_intersectors(S, mode: str = "auto"):
     a ``Hit``, ``any_hit`` the occlusion mask.
     """
     device = S["bvh_ldata"].device
+    tri_test = resolve_tri_test(tri_test)
     if mode == "auto":
         if device.type != "cuda":
-            mode = "bvh"
+            mode = "pallas_stream"
         elif S["tri_v0"].shape[0] >= AUTO_WIDE_MIN_TRIS:
             mode = "pallas8_nodes"
         else:
             mode = "kernel"
+    if mode not in MODES:
+        raise ValueError(f"unknown traversal mode {mode!r} ({' | '.join(MODES)})")
+    if tri_test == "hh" and mode not in ("kernel", "pallas_stream"):
+        raise ValueError(
+            f"tri_test='hh' is a test of the binary kernel; mode {mode!r} "
+            "has none (use 'kernel', 'pallas_stream' or a scene 'auto' gives it)"
+        )
 
     if mode in ("kernel", "pallas_stream"):
         from . import intersect_cuda
@@ -450,6 +675,8 @@ def make_intersectors(S, mode: str = "auto"):
                 "mode='kernel' needs the scene on a CUDA device, got "
                 f"{device}; use mode='bvh' for the plain PyTorch traversal"
             )
+        if tri_test == "hh":
+            return intersect_cuda.hh_intersectors(S)
         return intersect_cuda.closest_hit, intersect_cuda.any_hit
 
     if mode == "bvh":
@@ -472,30 +699,32 @@ def make_intersectors(S, mode: str = "auto"):
         closest.closest_bounce = closest_dense
         return closest, any_hit_dense
 
-    packed = {
+    import importlib
+
+    from ._launch import upload_packed
+
+    module_name, packer = {
         "pallas_nodes": ("intersect_nodes", "pack_scene_nodes"),
         "pallas8": ("intersect_wide8", "pack_scene8"),
         "pallas8_nodes": ("intersect_wide8_nodes", "pack_scene8_nodes"),
         "pallas_dense": ("intersect_dense", "pack_scene_dense"),
-    }
-    if mode in packed:
-        import importlib
-        from types import SimpleNamespace
+    }[mode]
+    module = importlib.import_module(f"{__package__}.{module_name}")
+    P = upload_packed(getattr(module, packer)(host_geometry(S)), device)
 
-        from ._launch import upload_packed
+    def closest(S, o, d, maxt, active):
+        return module.closest_hit(P, o, d, maxt, active)
 
-        module_name, packer = packed[mode]
-        module = importlib.import_module(f"{__package__}.{module_name}")
-        host = SimpleNamespace(**{k: S[k].cpu().numpy() for k in _GEOMETRY})
-        P = upload_packed(getattr(module, packer)(host), device)
+    def any_hit(S, o, d, maxt, active):
+        return module.any_hit(P, o, d, maxt, active)
 
-        def closest(S, o, d, maxt, active):
-            return module.closest_hit(P, o, d, maxt, active)
+    closest.packed = P
+    return closest, any_hit
 
-        def any_hit(S, o, d, maxt, active):
-            return module.any_hit(P, o, d, maxt, active)
 
-        closest.packed = P
-        return closest, any_hit
+def host_geometry(S):
+    """The geometry fields of an uploaded scene back on the host, as the
+    attribute bag the packers read."""
+    from types import SimpleNamespace
 
-    raise ValueError(f"unknown traversal mode {mode!r} ({' | '.join(MODES)})")
+    return SimpleNamespace(**{k: S[k].cpu().numpy() for k in _GEOMETRY})

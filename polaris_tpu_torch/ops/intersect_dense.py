@@ -5,20 +5,24 @@ Counterpart of the JAX package's ``ops/intersect_pallas_dense.py``
 (``pack_scene_dense``, ``intersect_pallas_dense``, TPU kernel ``_kernel``):
 no BVH at all. Every ray visits every instance in order, is moved into the
 instance's space once, and tests every triangle of the instance's contiguous
-range in order, with a strict ``t < best`` update. ``hybrid`` traversal uses
+range in order, with a strict best-hit update. ``hybrid`` traversal uses
 it for bounce and shadow rays (ops/intersect.py::make_intersectors).
 
 The packer keeps every key of the JAX packer (``pk_ranges``, ``pk_tris``,
 ``pk_w2o``) bit for bit; none is dropped.
 
-The triangle test is the package's one quotient-form test
-(``ops/intersect.py::mt_block``), not the TPU kernel's det²-scaled form, so
-this kernel returns the same ``t, u, v`` bit for bit as the BVH kernels.
+The triangle test is the TPU kernel's: det²-scaled Möller–Trumbore
+(``ops/intersect.py::_mt_tests_det2`` / ``scan_scaled``) with the best hit
+kept as numerators over ONE denominator across every triangle of every
+instance and divided once per ray at the end. The BVH kernels divide at
+every leaf, so an acceptance compare rounds differently here: on a near-tie
+this kernel may keep another triangle than they do; on the same triangle
+``t, u, v`` are the same bits.
 
-``dense_plain`` is the PLAIN VERSION of the kernel, and also the port's
-brute-force reference traversal (the JAX package's ``intersect_brute``): the
-same loops with all rays advanced together and the triangles taken in
-chunks. On CUDA tensors the wrappers launch the kernel or raise; they take
+``dense_plain`` is the PLAIN VERSION of the kernel: the same loops with all
+rays advanced together and the triangles taken in chunks. With
+``leaf="quot"`` it is the port's brute-force reference traversal (the JAX
+package's ``intersect_brute``, quotient form). On CUDA tensors the wrappers launch the kernel or raise; they take
 the plain version only for CPU tensors. ``LAUNCHES`` counts kernel launches.
 """
 
@@ -30,7 +34,14 @@ import numpy as np
 import torch
 
 from . import _launch
-from .intersect import Hit, _xform, mt_block, packed_tris
+from .intersect import (
+    Hit,
+    _mt_tests_det2,
+    _xform,
+    mt_block,
+    packed_tris,
+    scan_scaled,
+)
 
 SOURCE = "intersect_dense.cu"
 
@@ -103,10 +114,13 @@ def pack_scene_dense(scene) -> Dict[str, np.ndarray]:
 
 
 def dense_plain(
-    P, o, d, maxt, active, *, any_hit: bool, stats: Optional[dict] = None
+    P, o, d, maxt, active, *, any_hit: bool, stats: Optional[dict] = None,
+    leaf: str = "det2",
 ) -> Hit:
     """Every triangle of every instance against every ray, in the kernel's
-    order. ``stats`` receives the work as one thread per ray would do it:
+    order. ``leaf="det2"`` is the kernel's arithmetic (the denominator carried
+    across all triangles, one divide at the end); ``leaf="quot"`` the
+    quotient-form test. ``stats`` receives the work as one thread per ray would do it:
     ``tris`` (triangle tests; an any-hit ray stops at its first accepted
     triangle), ``inst`` (instance transforms of the rays still at work), no
     ``inner`` and no ``slabs``, and the distinct records read:
@@ -116,7 +130,10 @@ def dense_plain(
     T = packed_tris(P["pk_tris"])
     w2o = P["pk_w2o"].reshape(-1, 3, 4)
     ranges = P["pk_ranges"].reshape(-1, 2).tolist()
+    if leaf not in ("det2", "quot"):
+        raise ValueError(f"dense intersection has no leaf form {leaf!r}")
     best_t = torch.where(active, maxt, 0.0).to(torch.float32)
+    best_den = torch.ones(n, dtype=torch.float32, device=dev)
     best_u = torch.zeros(n, dtype=torch.float32, device=dev)
     best_v = torch.zeros(n, dtype=torch.float32, device=dev)
     best_tri = torch.zeros(n, dtype=torch.int32, device=dev)
@@ -138,9 +155,23 @@ def dense_plain(
             width = min(step, first + count - c0)
             tri = torch.arange(c0, c0 + width, device=dev)[None, :].expand(n, width)
             valid = torch.ones((n, width), dtype=torch.bool, device=dev)
-            hit, bt, bu, bv, btri = mt_block(
-                T, tri, valid, io, idr, best_t, closest=not any_hit
-            )
+            if leaf == "quot":
+                hit, bt, bu, bv, btri = mt_block(
+                    T, tri, valid, io, idr, best_t, closest=not any_hit
+                )
+            elif any_hit:
+                hit, btri = scan_scaled(
+                    _mt_tests_det2(T, tri, io, idr), tri, valid, best_t,
+                    closest=False,
+                )
+            else:
+                # numerators and denominator carry on; where nothing was
+                # accepted the scan hands the old best back
+                hit, (bt, best_den, bu, bv, btri) = scan_scaled(
+                    _mt_tests_det2(T, tri, io, idr), tri, valid,
+                    (best_t, best_den, best_u, best_v, best_tri.to(torch.int64)),
+                    closest=True,
+                )
             if stats is not None:
                 # an any-hit ray stops at its first accepted triangle; the
                 # furthest any ray gets is how much of the block is read
@@ -166,8 +197,9 @@ def dense_plain(
         stats["nodes_touched"] = stats.get("nodes_touched", 0)
         stats["tris_touched"] = stats.get("tris_touched", 0) + tris_touched
         stats["inst_touched"] = stats.get("inst_touched", 0) + inst_touched
-    t = torch.where(found, best_t, 0.0)
-    return Hit(t, best_inst, best_tri, best_u, best_v, active & found)
+    inv = 1.0 / best_den  # 1 for leaf="quot", whose best is a quotient already
+    t = torch.where(found, best_t * inv, 0.0)
+    return Hit(t, best_inst, best_tri, best_u * inv, best_v * inv, active & found)
 
 
 _LIB = None

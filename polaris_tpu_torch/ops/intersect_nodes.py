@@ -12,9 +12,10 @@ kept is the node layout and the traversal order:
   * nodes are renumbered by BFS depth over the TLAS + BLAS forest (a BLAS
     root inherits its depth from the TLAS leaf that enters it), so the top
     of the forest, which every ray visits, is contiguous
-  * traversal order and results are those of the binary kernel
+  * traversal order, leaf test (det²-scaled Möller–Trumbore, ``leaf="det2"``)
+    and so the results are those of the binary kernel
     (``ops/intersect_cuda.py``): near child first by the ray's own entry
-    distances; the two agree bit for bit
+    distances; the two agree bit for bit, as the TPU kernels do by contract
 
 Keys of the JAX packer that are DROPPED, because they only stage data for the
 TPU's memories: ``pn_res_ld``, ``pn_res_rd``, ``pn_res_cbox`` and
@@ -154,9 +155,11 @@ def nodes_layout(P) -> BinaryLayout:
 def nodes_plain(
     P, o, d, maxt, active, *, any_hit: bool, stats: Optional[dict] = None
 ) -> Hit:
-    """The binary lock-step traversal over the record array."""
+    """The binary lock-step traversal over the record array, with the
+    det²-scaled leaf test."""
     return traverse_binary(
-        nodes_layout(P), o, d, maxt, active, any_hit=any_hit, stats=stats
+        nodes_layout(P), o, d, maxt, active, any_hit=any_hit, stats=stats,
+        leaf="det2",
     )
 
 

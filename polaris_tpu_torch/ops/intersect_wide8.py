@@ -14,8 +14,9 @@ order and the leaf test:
   * a visit slab-tests all 8 children, continues at the nearest hit child
     and pushes the other hit children in slot order; an instance entry
     transforms the ray and the stack watermark restores it
-  * quotient-form Möller–Trumbore (the package's one triangle test, which is
-    this TPU kernel's own form)
+  * quotient-form Möller–Trumbore (``leaf="quot"``,
+    ``ops/intersect.py::mt_block``): this TPU kernel, alone among the five,
+    divides per triangle
 
 Every key of the JAX packer is kept bit for bit (``pk_boxes``, ``pk_entry``,
 ``pk_inst_entry``, ``pk_root``, ``pk_tris``, ``pk_w2o``); the port adds two
@@ -28,7 +29,7 @@ counterpart: the loop runs to the entry's own count.
 ``traverse_wide`` is the PLAIN VERSION of both 8-wide kernels (this one and
 ``ops/intersect_wide8_nodes.py``): per-lane stacks advanced in lock step,
 parametrised by a ``WideLayout`` that fetches a node's boxes and entries and
-decodes an entry. On CUDA tensors the wrappers launch the kernel or raise;
+decodes an entry, and by the leaf test (``leaf=``). On CUDA tensors the wrappers launch the kernel or raise;
 they take the plain version only for CPU tensors. ``LAUNCHES`` counts kernel
 launches.
 """
@@ -269,12 +270,13 @@ class WideLayout(NamedTuple):
 
 def traverse_wide(
     L: WideLayout, o, d, maxt, active, *, any_hit: bool,
-    stats: Optional[dict] = None,
+    stats: Optional[dict] = None, leaf: str = "quot",
 ) -> Hit:
     """8-wide two-level traversal for all lanes, advanced in lock step: each
     trip every live lane handles the entry it holds (enter an instance, test
     a leaf, or visit a wide node) exactly as one thread of the CUDA kernels
-    does (csrc/traverse_wide.cuh).
+    does (csrc/traverse_wide.cuh). ``leaf`` names the leaf test
+    (``ops/intersect.py::LEAF_TESTS``).
 
     ``stats`` receives the keys of ``traverse_binary``'s: ``inner`` counts
     wide-node visits and ``slabs`` the slab tests of their non-empty slots.
@@ -337,7 +339,7 @@ def traverse_wide(
             c = cnt[at]
             hit, bt, bu, bv, btri = mt_leaves(
                 L.tris, idx[at], c, cur_o[at], cur_d[at], best_t[at],
-                closest=not any_hit,
+                closest=not any_hit, leaf=leaf,
             )
             if any_hit:
                 found[at] = found[at] | hit

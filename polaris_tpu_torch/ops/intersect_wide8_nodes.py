@@ -21,8 +21,9 @@ node layout, the entry encoding and the child order:
 The traversal itself is ``ops/intersect_wide8.py::traverse_wide`` with this
 layout's fetch and decoder; the CUDA kernel is a second layout of the same
 device traversal body (``csrc/traverse_wide.cuh``) in a library of its own.
-The leaf test is the package's one quotient-form test, not the TPU kernel's
-det²-scaled tiers.
+The leaf test is the TPU kernel's own: det²-scaled Möller–Trumbore
+(``leaf="det2"``, ``ops/intersect.py::mt_block_det2``), where the 8-wide
+kernel with resident nodes divides per triangle.
 
 Keys of the JAX packer that are DROPPED, because they only stage data for the
 TPU's memories: ``p8n_res_entry``, ``p8n_res_boxes`` and ``p8n_resident``
@@ -184,9 +185,11 @@ def wide8_nodes_layout(P) -> WideLayout:
 def wide8_nodes_plain(
     P, o, d, maxt, active, *, any_hit: bool, stats: Optional[dict] = None
 ) -> Hit:
-    """The lock-step 8-wide traversal over the record array."""
+    """The lock-step 8-wide traversal over the record array, with the
+    det²-scaled leaf test."""
     return traverse_wide(
-        wide8_nodes_layout(P), o, d, maxt, active, any_hit=any_hit, stats=stats
+        wide8_nodes_layout(P), o, d, maxt, active, any_hit=any_hit, stats=stats,
+        leaf="det2",
     )
 
 

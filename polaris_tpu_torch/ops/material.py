@@ -13,9 +13,10 @@ All lanes advance one tree level per iteration of a fixed-depth loop
 (vectorized gathers per level); lanes already at a leaf hold position.
 Random draws use a per-level RNG stream so draw order is deterministic.
 
-MIX_MAP, BUMP_MAP and NORMAL_MAP read the texture atlas, whose sampler is not
-ported yet (ops/texture.py): a scene that holds one raises
-``NotImplementedError`` there.
+MIX_MAP, BUMP_MAP and NORMAL_MAP read the texture atlas through
+``ops/texture.py`` (``tex_sample1`` for the mix weight, ``tex_bump_sample3``
+and ``tex_sample3`` for the perturbed normal); a scene without such a node
+skips their branches (ops/statics.py).
 """
 
 from __future__ import annotations

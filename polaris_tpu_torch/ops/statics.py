@@ -9,10 +9,6 @@ feature launches no device work at all.
 Numerics-preserving by construction: a skipped branch could only ever feed a
 ``where`` whose predicate is False on every lane (the predicate is a
 per-lane comparison against data that the host just proved absent).
-
-The same sidecar tells the port which features a scene NEEDS: modules that
-have not ported a feature yet raise ``NotImplementedError`` naming it instead
-of rendering a silently different image.
 """
 
 from __future__ import annotations

@@ -278,7 +278,8 @@ class TorchRenderer:
     ``device=None`` means the CUDA device and raises when there is none;
     the CPU is used only on request (``device="cpu"``). ``mode`` selects the
     traversal backend (``ops/intersect.py::make_intersectors`` lists the
-    modes); ``regen`` switches the sample loop to wavefront path
+    modes) and ``tri_test`` the binary kernel's triangle test (``"mt"`` or
+    ``"hh"``; ``None`` reads ``POLARIS_TRI_TEST``); ``regen`` switches the sample loop to wavefront path
     regeneration. A mode that peels the bounces after the first onto another
     kernel ('hybrid') cannot regenerate, because regeneration mixes bounce
     depths in one pass: the renderer then warns and takes the sequential
@@ -290,12 +291,15 @@ class TorchRenderer:
     # accumulation advances by
     spp_per_launch = 8
 
-    def __init__(self, scene, device=None, mode: str = "auto", regen: bool = False):
+    def __init__(
+        self, scene, device=None, mode: str = "auto", regen: bool = False,
+        tri_test: Optional[str] = None,
+    ):
         self.device = resolve_device(device)
         self.scene = as_scene_data(scene)
         self.regen = regen
         self.S = upload_scene(self.scene, self.device)
-        self.closest, self.any_hit = make_intersectors(self.S, mode)
+        self.closest, self.any_hit = make_intersectors(self.S, mode, tri_test)
         self.closest_bounce = getattr(self.closest, "closest_bounce", None)
         if self.regen and self.closest_bounce is not None:
             _log.warning(

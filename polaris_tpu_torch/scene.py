@@ -7,9 +7,12 @@ Counterpart of ``SceneData.split_params`` plus the upload in the JAX
 renderer's constructor; geometry and material parameters share one merged
 dict ``S`` because eager PyTorch needs no static/traced split.
 
-Besides one tensor per array field, ``S`` carries two host-side sidecars:
-``_stx`` (which features the scene can reach, ops/statics.py) and
-``_tex_meta`` (offset, width, height, storage per texture).
+Besides one tensor per array field (the float atlas ``tex_data`` stays
+float32, the byte atlas ``tex_data_u8`` stays uint8), ``S`` carries two
+host-side sidecars, ``_stx`` (which features the scene can reach,
+ops/statics.py) and ``_tex_meta`` (offset, width, height, storage per
+texture), and ``_tex_table``, the same rows as a device tensor for the
+sampler's per-lane lookup (ops/texture.py).
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ import torch
 
 from .asset.scene_data import SceneData
 from .ops.statics import Static, scene_statics
-from .ops.texture import require_supported
+from .ops.texture import texture_table
 
 
 def as_scene_data(scene: Union[SceneData, Dict]) -> SceneData:
@@ -59,13 +62,11 @@ def upload_scene(scene: Union[SceneData, Dict], device) -> Dict:
 
     float32 / int32 / uint8 fields keep their dtype; ``tri_normals`` and
     ``tri_uvs`` are stored as flat ``(T, 9)`` / ``(T, 6)`` rows so the
-    per-hit attribute fetch is one row gather. Raises ``NotImplementedError``
-    naming every feature the scene needs that the port cannot render yet.
+    per-hit attribute fetch is one row gather.
     """
     scene = as_scene_data(scene)
     device = resolve_device(device)
     stx = scene_statics(scene)
-    require_supported(stx)
     S: Dict = {}
     for f in fields(scene):
         v = getattr(scene, f.name)
@@ -89,4 +90,5 @@ def upload_scene(scene: Union[SceneData, Dict], device) -> Dict:
             )
         )
     )
+    S["_tex_table"] = texture_table(S["_tex_meta"].tex, device)
     return S

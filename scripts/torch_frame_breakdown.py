@@ -2,20 +2,27 @@
 
     python3 scripts/torch_frame_breakdown.py [--out FILE.json]
     python3 scripts/torch_frame_breakdown.py --scene terrain819k --mode pallas8_nodes
+    python3 scripts/torch_frame_breakdown.py --scene dispersive --spp 16
 
 Without arguments renders the flagship frame (sphere.obj, 512x512, 16 spp,
 5 bounces, RR after bounce 3, path regeneration, one launch, ``render_u8``).
-``--scene terrain819k`` renders the big-scene frame instead (the procedural
-terrain at grid 640, 512x512, 4 spp, 3 bounces, RR after 4, sequential sample
-loop, ``spp_per_launch=1``) through the traversal mode given by ``--mode``
-(``pallas8_nodes`` or ``pallas_nodes``). Prints one JSON object:
+``--scene cornell | instanced | mitsuba | dispersive`` renders that scene at
+the size of its benchmark configuration (512x512 at 64, 16, 16 spp;
+dispersive 1024x1024 at 256 spp) with the same loop; ``--spp`` cuts the
+samples (a frame of 256 spp under the profiler is over a million device
+kernels). ``--scene terrain819k`` renders the big-scene frame instead (the
+procedural terrain at grid 640, 512x512, 4 spp, 3 bounces, RR after 4,
+sequential sample loop, ``spp_per_launch=1``) through the traversal mode given
+by ``--mode`` (``pallas8_nodes`` or ``pallas_nodes``). Prints one JSON object:
 
   frame       best-of-3 frame ms and the trips of the sample loop
   profile     one frame under torch.profiler: wall ms, summed device-kernel
               ms, kernels launched, device busy share, the heaviest kernels
   layers      one frame with a device synchronisation around every layer
               (raygen, closest hit, shade, any hit): serialised ms per layer,
-              calls, and what is left for RNG and loop bookkeeping
+              calls, and what is left for RNG and loop bookkeeping; and, in a
+              second such frame, the atlas fetches inside shade
+              (``texture_fetch``: every call of the sampler's corner gather)
   loop_sync   latency of the loop condition ``bool(alive.any())`` on an idle
               device, and that latency times the frame's trips (regeneration
               loop only; null for the sequential loop, which reads nothing back)
@@ -42,6 +49,10 @@ sys.path.insert(0, REPO)
 # scene -> frame, spp, bounces, RR after, regen, spp per launch, default mode
 WORKLOADS = {
     "sphere": (512, 16, 5, 3, True, 16, "auto"),
+    "cornell": (512, 64, 5, 3, True, 16, "auto"),
+    "instanced": (512, 16, 5, 3, True, 16, "auto"),
+    "mitsuba": (512, 16, 5, 3, True, 16, "auto"),
+    "dispersive": (1024, 256, 5, 3, True, 16, "auto"),
     "terrain819k": (512, 4, 3, 4, False, 1, "pallas8_nodes"),
 }
 
@@ -127,6 +138,22 @@ def measure_layers(renderer, opt) -> dict:
     layers = {k: {"ms": v[0], "calls": v[1]} for k, v in spent.items()}
     layers["rng_and_bookkeeping"] = {"ms": total - sum(v[0] for v in spent.values())}
     layers["serialised_frame_ms"] = total
+
+    # the atlas fetches, which happen inside shade: a frame of their own, so
+    # that their fences do not count into the layers above
+    from polaris_tpu_torch.ops import texture
+
+    spent["texture_fetch"] = [0.0, 0]
+    saved_fetch = texture._corners
+    texture._corners = fenced("texture_fetch", saved_fetch)
+    try:
+        fetch_frame = _timed_frame(renderer, opt)
+    finally:
+        texture._corners = saved_fetch
+    layers["texture_fetch"] = {
+        "ms": spent["texture_fetch"][0], "calls": spent["texture_fetch"][1],
+        "frame_ms_with_these_fences": fetch_frame,
+    }
     return layers
 
 
@@ -146,6 +173,7 @@ def main() -> int:
     ap.add_argument("--out", help="also write the JSON object to this file")
     ap.add_argument("--scene", choices=sorted(WORKLOADS), default="sphere")
     ap.add_argument("--mode", help="traversal mode (default: the workload's own)")
+    ap.add_argument("--spp", type=int, help="samples per pixel (default: the workload's own)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_frame_breakdown: no CUDA device available", file=sys.stderr)
@@ -159,10 +187,13 @@ def main() -> int:
 
     frame, spp, bounces, rr_after, regen, per_launch, mode = WORKLOADS[args.scene]
     mode = args.mode or mode
-    if args.scene == "sphere":
-        scene = compile_scene(read_scene(os.path.join(REPO, "scenes", "sphere.obj")))
-    else:
+    spp = args.spp or spp
+    if args.scene == "terrain819k":
         scene = compile_scene(make_terrain_scene(grid=640))
+    else:
+        scene = compile_scene(
+            read_scene(os.path.join(REPO, "scenes", f"{args.scene}.obj"))
+        )
     renderer = TorchRenderer(scene, mode=mode, regen=regen)
     renderer.spp_per_launch = per_launch
     opt = RenderOptions(

@@ -1,10 +1,13 @@
 """The port's BVH traversal against the JAX package's, on the CPU.
 
 ``polaris_tpu_torch.ops.intersect.intersect_bvh`` is the plain PyTorch
-version of the CUDA traversal kernel (``csrc/intersect.cu``); the kernel
-itself only runs on a card, where ``chip_smoke.py`` holds it against this
-plain version. Here the plain version is held against three traversals of
-the JAX package on the same seeded rays:
+binary traversal: with ``leaf="det2"`` the plain version of the CUDA
+traversal kernel (``csrc/intersect.cu``; the kernel itself only runs on a
+card, where ``chip_smoke.py`` holds it against that plain version), with its
+default quotient-form leaf test the port's ``mode="bvh"``. Here the
+quotient form is held against three traversals of the JAX package on the same
+seeded rays (tests/test_torch_leaf_tests.py holds the det²-scaled and the
+Havel–Herout form against the Pallas kernel, with a tighter bound):
 
   * ``ops.intersect.intersect_bvh``       per-lane stack, one ``while_loop``
   * ``ops.intersect_packet.intersect_packet``  shared stack per 64-ray tile
@@ -241,24 +244,37 @@ def test_instanced_scene_reaches_several_instances(cases):
 @pytest.mark.parametrize("name", SCENES)
 def test_wrappers_use_the_plain_version_on_cpu_tensors(cases, name):
     """``intersect_cuda.closest_hit`` / ``any_hit`` on CPU tensors run the
-    plain version, count no kernel launch, and the 'bvh' intersectors of
-    ``make_intersectors`` are the same function."""
+    kernel's plain version (the det²-scaled leaf test), count no kernel
+    launch, and are what 'auto' gives on a CPU scene; 'bvh' stays the
+    quotient form."""
     rec = cases[name]
     before = dict(intersect_cuda.LAUNCHES)
     hit = intersect_cuda.closest_hit(rec["S_t"], *rec["rays_t"])
     occluded = intersect_cuda.any_hit(rec["S_t"], *rec["rays_t"])
     assert intersect_cuda.LAUNCHES == before
-    want = rec["torch", "closest"]
+    want = _torch_hit_to_numpy(
+        tix.intersect_bvh(rec["S_t"], *rec["rays_t"], any_hit=False, leaf="det2")
+    )
     for k, v in _torch_hit_to_numpy(hit).items():
         np.testing.assert_array_equal(v, want[k], err_msg=k)
-    np.testing.assert_array_equal(occluded.numpy(), rec["torch", "any"]["mask"])
-    closest, any_hit = tix.make_intersectors(rec["S_t"], "auto")
-    np.testing.assert_array_equal(
-        closest(rec["S_t"], *rec["rays_t"]).tri.numpy(), want["tri"]
-    )
+    want_any = tix.intersect_bvh(
+        rec["S_t"], *rec["rays_t"], any_hit=True, leaf="det2"
+    ).mask.numpy()
+    np.testing.assert_array_equal(occluded.numpy(), want_any)
+    closest, any_hit = tix.make_intersectors(rec["S_t"], "auto", tri_test="mt")
+    assert closest is intersect_cuda.closest_hit and any_hit is intersect_cuda.any_hit
+    closest, any_hit = tix.make_intersectors(rec["S_t"], "bvh")
+    quot = rec["torch", "closest"]
+    for k, v in _torch_hit_to_numpy(closest(rec["S_t"], *rec["rays_t"])).items():
+        np.testing.assert_array_equal(v, quot[k], err_msg=k)
     np.testing.assert_array_equal(
         any_hit(rec["S_t"], *rec["rays_t"]).numpy(), rec["torch", "any"]["mask"]
     )
+    # the two forms round differently and agree to a few ulps
+    same = want["mask"] & quot["mask"] & (want["tri"] == quot["tri"])
+    assert same.sum() >= 0.999 * quot["mask"].sum()
+    for k in ("t", "u", "v"):
+        np.testing.assert_allclose(want[k][same], quot[k][same], rtol=RTOL, atol=ATOL)
 
 
 def test_all_inactive_and_empty_batches(cases):

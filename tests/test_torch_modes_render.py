@@ -6,11 +6,17 @@ version (the CUDA kernels run only on a card; ``chip_smoke.py`` drives them
 there). For each new mode the 24x24, 1 spp, 2-bounce accumulator is held
 against ``TpuRenderer(mode="bvh")`` within ``atol=1e-4, rtol=1e-3`` (the gate
 of tests/test_parity.py; a lane whose decision flips on an ulp is counted, at
-most 0.5% of the frame, as in tests/test_torch_render.py) and must EQUAL the
-port's own ``mode="bvh"`` image: all modes share one triangle test, so the
-same hits give the same image bit for bit. The big-scene modes (K2
-``pallas8_nodes``, K3 ``pallas_nodes``) render the procedural terrain at
-grid 32; ``pallas8``, ``pallas_dense`` and ``hybrid`` render cornell.
+most 0.5% of the frame, as in tests/test_torch_render.py). Among themselves
+the port's modes are held as far as they share a leaf arithmetic
+(``SAME_IMAGE_AS``): the modes of the det²-scaled kernels (K1
+``pallas_stream``, K2 ``pallas8_nodes``, K3 ``pallas_nodes``, K5
+``pallas_dense``, ``hybrid`` = K1 + K5) must EQUAL the image of K1's plain
+version, which is what ``mode="auto"`` renders on a CPU scene; ``pallas8``
+(K4, quotient form) must EQUAL the port's own ``mode="bvh"`` image. Across
+the two arithmetics a hit moves by an ulp, so those pairs are held by the
+tolerance above only. The big-scene modes (K2, K3) render the procedural
+terrain at grid 32; ``pallas8``, ``pallas_dense`` and ``hybrid`` render
+cornell.
 """
 
 import logging
@@ -49,6 +55,15 @@ RENDER_MODES = {
     "pallas_dense": "cornell",
     "hybrid": "cornell",
 }
+# mode -> the mode of the port whose image it must equal bit for bit
+SAME_IMAGE_AS = {
+    "pallas8_nodes": "auto",
+    "pallas_nodes": "auto",
+    "pallas_stream": "auto",
+    "pallas8": "bvh",
+    "pallas_dense": "auto",
+    "hybrid": "auto",
+}
 PACKED_MODES = {
     "pallas8_nodes": intersect_wide8_nodes,
     "pallas_nodes": intersect_nodes,
@@ -76,7 +91,9 @@ def scenes(scenes_dir):
 
 @pytest.fixture(scope="module")
 def references(scenes):
-    """Per scene: the JAX package's ``mode="bvh"`` accumulator and the port's."""
+    """Per scene: the JAX package's ``mode="bvh"`` accumulator, and the
+    port's through ``mode="bvh"`` (quotient form) and ``mode="auto"`` (K1's
+    plain version, det²-scaled)."""
     from polaris_tpu.render.integrator import TpuRenderer
     from polaris_tpu.render.options import RenderOptions as JaxOptions
 
@@ -85,15 +102,20 @@ def references(scenes):
         jax_accum = np.asarray(
             TpuRenderer(scenes[name], mode="bvh").render_accum(JaxOptions(**OPT))
         )
-        port = TorchRenderer(_scene_dict(scenes[name]), device="cpu", mode="bvh")
-        out[name] = (jax_accum, port.render_accum(RenderOptions(**OPT)).numpy())
+        port = {
+            mode: TorchRenderer(
+                _scene_dict(scenes[name]), device="cpu", mode=mode, tri_test="mt"
+            ).render_accum(RenderOptions(**OPT)).numpy()
+            for mode in ("bvh", "auto")
+        }
+        out[name] = (jax_accum, port)
     return out
 
 
 @pytest.mark.parametrize("mode", sorted(RENDER_MODES))
 def test_mode_renders_the_reference_image(scenes, references, mode):
     name = RENDER_MODES[mode]
-    jax_accum, port_bvh = references[name]
+    jax_accum, port = references[name]
     r = TorchRenderer(_scene_dict(scenes[name]), device="cpu", mode=mode)
     got = r.render_accum(RenderOptions(**OPT)).numpy()
     assert got.shape == (24, 24, 3) and np.isfinite(got).all()
@@ -101,7 +123,11 @@ def test_mode_renders_the_reference_image(scenes, references, mode):
     bad = (~np.isclose(got, jax_accum, atol=ATOL, rtol=RTOL)).any(axis=-1)
     print(f"{mode}/{name}: {int(bad.sum())} of {bad.size} pixels outside tolerance")
     assert int(bad.sum()) <= int(MAX_FLIPPED_SHARE * bad.size)
-    np.testing.assert_array_equal(got, port_bvh)
+    np.testing.assert_array_equal(got, port[SAME_IMAGE_AS[mode]])
+    # the other arithmetic: by tolerance, counting the lanes that flip
+    other = port["bvh" if SAME_IMAGE_AS[mode] == "auto" else "auto"]
+    far = (~np.isclose(got, other, atol=ATOL, rtol=RTOL)).any(axis=-1)
+    assert int(far.sum()) <= int(MAX_FLIPPED_SHARE * far.size)
     assert (r.closest_bounce is not None) == (mode == "hybrid")
 
 
@@ -204,16 +230,22 @@ def test_mode_with_a_kernel_takes_the_plain_version_on_a_cpu_scene(scenes, mode)
 def test_mode_switch_edges(scenes, monkeypatch):
     S = upload_scene(_scene_dict(scenes["cornell"]), "cpu")
     # the 'auto' rule by triangle count holds on a card only: a CPU scene of
-    # any size gets the plain traversal, never a packed kernel mode
+    # any size gets the binary kernel's plain version, never a packed mode
     monkeypatch.setattr(tix, "AUTO_WIDE_MIN_TRIS", 1)
-    assert not hasattr(tix.make_intersectors(S, mode="auto")[0], "packed")
+    assert tix.make_intersectors(S, mode="auto", tri_test="mt")[0] is intersect_cuda.closest_hit
     with pytest.raises(ValueError, match="CUDA"):
         tix.make_intersectors(S, mode="kernel")
     with pytest.raises(ValueError, match="unknown traversal mode"):
         tix.make_intersectors(S, mode="pallas_wide")
     # the streamed variant of K1 is K1: on a CPU scene its wrapper's plain version
-    closest, any_hit = tix.make_intersectors(S, mode="pallas_stream")
+    closest, any_hit = tix.make_intersectors(S, mode="pallas_stream", tri_test="mt")
     assert closest is intersect_cuda.closest_hit and any_hit is intersect_cuda.any_hit
+    # its second triangle test: Havel-Herout rows packed once, for K1 only
+    closest, _ = tix.make_intersectors(S, mode="pallas_stream", tri_test="hh")
+    assert closest.tris_hh.shape == (12 * S["tri_v0"].shape[0],)
+    for mode in ("bvh", "hybrid", "pallas8", "pallas8_nodes", "pallas_nodes", "pallas_dense"):
+        with pytest.raises(ValueError, match="binary kernel"):
+            tix.make_intersectors(S, mode=mode, tri_test="hh")
     assert set(tix.MODES) >= set(RENDER_MODES) | {"auto", "kernel", "bvh"}
 
 

@@ -9,11 +9,15 @@ Tolerance: the accumulators must agree within ``atol=1e-4, rtol=1e-3`` (the
 gate of tests/test_parity.py). A lane whose Russian-roulette survival, BxDF
 branch pick or ``> 0`` mask flips on a one-ulp difference between the two
 frameworks changes its pixel by far more than any tolerance; such pixels
-are COUNTED and may make up at most 0.5% of the frame.
+are COUNTED and may make up at most 0.5% of the frame. The textured scenes
+(mitsuba: a byte-stored checker texture; dispersive: float-stored radiance
+textures on an area light and on the lat-long environment) are held to
+``atol=2e-4, rtol=1e-3``, the bound of tests/test_parity.py::_compare.
 
 ``python tests/test_torch_render.py --write-fixture`` regenerates
-``tests/fixtures/torch_golden_sphere_32.npz``, the JAX-made accumulator that
-``chip_smoke.py`` holds the CUDA path against on a machine without JAX.
+``tests/fixtures/torch_golden_sphere_32.npz`` and
+``tests/fixtures/torch_golden_mitsuba_32.npz``, the JAX-made accumulators
+that ``chip_smoke.py`` holds the CUDA path against on a machine without JAX.
 """
 
 import os
@@ -28,12 +32,17 @@ import torch
 torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FIXTURE = os.path.join(REPO, "tests", "fixtures", "torch_golden_sphere_32.npz")
+FIXTURES = {
+    name: os.path.join(REPO, "tests", "fixtures", f"torch_golden_{name}_32.npz")
+    for name in ("sphere", "mitsuba")
+}
+FIXTURE = FIXTURES["sphere"]
 GOLDEN_OPT = dict(
     width=32, height=32, spp=2, num_bounces=2, min_bounces_for_rr=3, seed=0
 )
 
 ATOL, RTOL = 1e-4, 1e-3
+TEXTURED_ATOL = 2e-4  # mitsuba, dispersive (tests/test_parity.py::_compare)
 MAX_FLIPPED_SHARE = 0.005
 
 # (scene, bounces, rr threshold): cornell/3/2 is the Russian-roulette case
@@ -57,11 +66,11 @@ def _jax_scene(name):
     return compile_scene(read_scene(os.path.join(REPO, "scenes", f"{name}.obj")))
 
 
-def _golden_accum():
+def _golden_accum(name="sphere"):
     from polaris_tpu.render.integrator import TpuRenderer
     from polaris_tpu.render.options import RenderOptions
 
-    scene = _jax_scene("sphere")
+    scene = _jax_scene(name)
     return np.asarray(
         TpuRenderer(scene, mode="packet").render_accum(RenderOptions(**GOLDEN_OPT))
     )
@@ -108,10 +117,10 @@ def _torch_opt(**kw):
     return RenderOptions(**base)
 
 
-def _assert_close_counting_flips(got, ref, label):
+def _assert_close_counting_flips(got, ref, label, atol=ATOL):
     assert got.shape == ref.shape
     assert np.isfinite(got).all()
-    bad = (~np.isclose(got, ref, atol=ATOL, rtol=RTOL)).any(axis=-1)
+    bad = (~np.isclose(got, ref, atol=atol, rtol=RTOL)).any(axis=-1)
     n_bad = int(bad.sum())
     allowed = int(MAX_FLIPPED_SHARE * bad.size)
     print(f"{label}: {n_bad} of {bad.size} pixels outside tolerance (allowed {allowed})")
@@ -224,14 +233,66 @@ def test_upload_scene_layout(scenes):
         upload_scene({"not_a_field": np.zeros(1)}, "cpu")
 
 
-@pytest.mark.parametrize("name", ["mitsuba", "dispersive"])
-def test_unported_features_raise_by_name(scenes_dir, name):
-    """A scene that needs the texture atlas raises naming the feature; it
-    never renders with a silently substituted constant."""
-    from polaris_tpu_torch.render.integrator import TorchRenderer
+@pytest.fixture(scope="module")
+def textured():
+    """mitsuba and dispersive, compiled once, with the JAX package's 32x32
+    accumulators (2 spp, 3 bounces, RR after 3)."""
+    from polaris_tpu.render.integrator import TpuRenderer
+    from polaris_tpu.render.options import RenderOptions
 
-    with pytest.raises(NotImplementedError, match="texture"):
-        TorchRenderer(_scene_dict(_jax_scene(name)), device="cpu")
+    out = {}
+    for name in ("mitsuba", "dispersive"):
+        scene = _jax_scene(name)
+        opt = RenderOptions(
+            width=32, height=32, spp=2, num_bounces=3, min_bounces_for_rr=3
+        )
+        ref = np.asarray(TpuRenderer(scene, mode="packet").render_accum(opt))
+        out[name] = (scene, ref)
+    return out
+
+
+@pytest.mark.parametrize("name", ["mitsuba", "dispersive"])
+def test_unported_features_raise_by_name(textured, name):
+    """The scenes that used to raise for their textures: the atlas sampler is
+    ported, so they upload, say which texture features they hold, and render
+    the JAX package's image."""
+    scene, ref = textured[name]
+    r = _torch_renderer(scene)
+    stx = r.S["_stx"]
+    if name == "mitsuba":
+        assert "reflectance" in stx.tex_fields and r.S["tex_data_u8"].dtype == torch.uint8
+    else:
+        assert "radiance" in stx.tex_fields and stx.bg_tex
+        assert r.S["tex_data"].dtype == torch.float32 and r.S["tex_data_u8"].numel() == 0
+    got = r.render_accum(_torch_opt(num_bounces=3, min_bounces_for_rr=3))
+    _assert_close_counting_flips(got.numpy(), ref, name, atol=TEXTURED_ATOL)
+    assert ref.mean() > 1e-3
+
+
+def test_slice_as_a_whole_through_havel_herout(textured, monkeypatch):
+    """The textured path and the kernel's second triangle test together:
+    mitsuba through ``tri_test="hh"`` (the plain version of K1's Havel-Herout
+    entry points), chosen by argument and by ``POLARIS_TRI_TEST``."""
+    from polaris_tpu_torch.ops import intersect_cuda
+
+    scene, ref = textured["mitsuba"]
+    opt = _torch_opt(num_bounces=3, min_bounces_for_rr=3)
+    r = _torch_renderer(scene, tri_test="hh")
+    assert r.closest.tris_hh.shape == (12 * scene.tri_v0.shape[0],)
+    before = dict(intersect_cuda.LAUNCHES)
+    got = r.render_accum(opt).numpy()
+    assert intersect_cuda.LAUNCHES == before  # the plain version, no launch
+    _assert_close_counting_flips(got, ref, "mitsuba/hh", atol=TEXTURED_ATOL)
+    monkeypatch.setenv("POLARIS_TRI_TEST", "hh")
+    by_env = _torch_renderer(scene)
+    assert hasattr(by_env.closest, "tris_hh")
+    np.testing.assert_array_equal(by_env.render_accum(opt).numpy(), got)
+    monkeypatch.setenv("POLARIS_TRI_TEST", "mt")
+    assert not hasattr(_torch_renderer(scene).closest, "tris_hh")
+    with pytest.raises(ValueError, match="binary kernel"):
+        _torch_renderer(scene, mode="pallas8", tri_test="hh")
+    with pytest.raises(ValueError, match="unknown triangle test"):
+        _torch_renderer(scene, tri_test="woop")
 
 
 def test_kernel_mode_on_cpu_raises(scenes):
@@ -290,32 +351,57 @@ def test_chip_smoke_fails_without_a_gpu():
 
 
 def test_golden_fixture_is_current():
+    _assert_fixture_is_current("sphere")
+
+
+def test_mitsuba_golden_fixture_is_current():
+    _assert_fixture_is_current("mitsuba")
+
+
+def _assert_fixture_is_current(name):
     """The committed fixture still equals what the JAX package renders."""
-    fx = np.load(FIXTURE)
+    fx = np.load(FIXTURES[name])
     for k, v in GOLDEN_OPT.items():
         assert int(fx[k]) == v, k
     # tight, not bitwise: XLA's CPU code generation follows the host's vector
     # units, so the last bit may move between machines
-    bad = ~np.isclose(fx["accum"], _golden_accum(), atol=1e-6, rtol=1e-5)
+    bad = ~np.isclose(fx["accum"], _golden_accum(name), atol=1e-6, rtol=1e-5)
     assert int(bad.any(axis=-1).sum()) <= int(MAX_FLIPPED_SHARE * 32 * 32)
 
 
 def test_torch_cpu_matches_golden_fixture(scenes):
     """The check chip_smoke makes on the card, made here on the CPU path."""
+    _assert_matches_sphere_fixture(scenes, "mt")
+
+
+def test_torch_cpu_matches_golden_fixture_through_havel_herout(scenes):
+    _assert_matches_sphere_fixture(scenes, "hh")
+
+
+def _assert_matches_sphere_fixture(scenes, tri_test):
     fx = np.load(FIXTURE)
-    got = _torch_renderer(scenes["sphere"]).render_accum(
+    got = _torch_renderer(scenes["sphere"], tri_test=tri_test).render_accum(
         _torch_opt(**{k: v for k, v in GOLDEN_OPT.items()})
     )
-    _assert_close_counting_flips(got.numpy(), fx["accum"], "golden")
+    _assert_close_counting_flips(got.numpy(), fx["accum"], f"golden/{tri_test}")
+
+
+def test_torch_cpu_matches_mitsuba_golden_fixture(textured):
+    fx = np.load(FIXTURES["mitsuba"])
+    got = _torch_renderer(textured["mitsuba"][0]).render_accum(
+        _torch_opt(**{k: v for k, v in GOLDEN_OPT.items()})
+    )
+    _assert_close_counting_flips(got.numpy(), fx["accum"], "golden/mitsuba")
 
 
 def _write_fixture():
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
-    accum = _golden_accum()
-    np.savez_compressed(
-        FIXTURE, accum=accum, **{k: np.int64(v) for k, v in GOLDEN_OPT.items()}
-    )
-    print(f"wrote {FIXTURE}: accum {accum.shape} mean {accum.mean():.6f}")
+    for name, path in FIXTURES.items():
+        accum = _golden_accum(name)
+        np.savez_compressed(
+            path, accum=accum, **{k: np.int64(v) for k, v in GOLDEN_OPT.items()}
+        )
+        print(f"wrote {path}: accum {accum.shape} mean {accum.mean():.6f}")
 
 
 if __name__ == "__main__":
