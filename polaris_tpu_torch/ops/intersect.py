@@ -321,7 +321,7 @@ def num_tris(T) -> int:
     return int(T[0].shape[0])
 
 
-def mt_leaves(T, first, cnt, o, d, best_t, *, closest: bool, leaf: str = "quot"):
+def mt_leaves(T, first, cnt, o, d, best_t, *, closest: bool, leaf: str):
     """The ``leaf`` form's block test on each ray's own run
     ``[first, first + cnt)``."""
     width = max(int(cnt.max()), 1)
@@ -409,12 +409,14 @@ def scene_layout(S, tris_hh: Optional[torch.Tensor] = None) -> BinaryLayout:
 
 
 def intersect_bvh(
-    S, o, d, maxt, active, *, any_hit: bool, stats: Optional[dict] = None,
-    leaf: str = "quot", tris_hh: Optional[torch.Tensor] = None,
+    S, o, d, maxt, active, *, any_hit: bool, leaf: str,
+    stats: Optional[dict] = None, tris_hh: Optional[torch.Tensor] = None,
 ) -> Hit:
     """Two-level BVH traversal of the uploaded scene ``S`` for all lanes:
-    ``traverse_binary`` over ``scene_layout(S)``. ``leaf="hh"`` needs the
-    rows of ``pack_tris_hh`` as ``tris_hh``."""
+    ``traverse_binary`` over ``scene_layout(S)``. ``leaf`` has no default:
+    ``"det2"`` is K1's plain version, ``"hh"`` its Havel–Herout variant's
+    (it needs the rows of ``pack_tris_hh`` as ``tris_hh``), ``"quot"`` the
+    traversal of ``mode="bvh"``."""
     if (leaf == "hh") != (tris_hh is not None):
         raise ValueError("leaf='hh' and the rows of pack_tris_hh go together")
     return traverse_binary(
@@ -424,8 +426,8 @@ def intersect_bvh(
 
 
 def traverse_binary(
-    L: BinaryLayout, o, d, maxt, active, *, any_hit: bool,
-    stats: Optional[dict] = None, leaf: str = "quot",
+    L: BinaryLayout, o, d, maxt, active, *, any_hit: bool, leaf: str,
+    stats: Optional[dict] = None,
 ) -> Hit:
     """Two-level binary BVH traversal for all lanes, advanced in lock step.
 
@@ -682,10 +684,10 @@ def make_intersectors(S, mode: str = "auto", tri_test: Optional[str] = None):
     if mode == "bvh":
 
         def closest(S, o, d, maxt, active):
-            return intersect_bvh(S, o, d, maxt, active, any_hit=False)
+            return intersect_bvh(S, o, d, maxt, active, any_hit=False, leaf="quot")
 
         def any_hit(S, o, d, maxt, active):
-            return intersect_bvh(S, o, d, maxt, active, any_hit=True).mask
+            return intersect_bvh(S, o, d, maxt, active, any_hit=True, leaf="quot").mask
 
         return closest, any_hit
 

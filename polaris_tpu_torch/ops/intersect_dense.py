@@ -20,10 +20,9 @@ this kernel may keep another triangle than they do; on the same triangle
 ``t, u, v`` are the same bits.
 
 ``dense_plain`` is the PLAIN VERSION of the kernel: the same loops with all
-rays advanced together and the triangles taken in chunks. With
-``leaf="quot"`` it is the port's brute-force reference traversal (the JAX
-package's ``intersect_brute``, quotient form). On CUDA tensors the wrappers launch the kernel or raise; they take
-the plain version only for CPU tensors. ``LAUNCHES`` counts kernel launches.
+rays advanced together and the triangles taken in chunks. On CUDA tensors
+the wrappers launch the kernel or raise; they take the plain version only for
+CPU tensors. ``LAUNCHES`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -38,7 +37,6 @@ from .intersect import (
     Hit,
     _mt_tests_det2,
     _xform,
-    mt_block,
     packed_tris,
     scan_scaled,
 )
@@ -114,13 +112,12 @@ def pack_scene_dense(scene) -> Dict[str, np.ndarray]:
 
 
 def dense_plain(
-    P, o, d, maxt, active, *, any_hit: bool, stats: Optional[dict] = None,
-    leaf: str = "det2",
+    P, o, d, maxt, active, *, any_hit: bool, stats: Optional[dict] = None
 ) -> Hit:
     """Every triangle of every instance against every ray, in the kernel's
-    order. ``leaf="det2"`` is the kernel's arithmetic (the denominator carried
-    across all triangles, one divide at the end); ``leaf="quot"`` the
-    quotient-form test. ``stats`` receives the work as one thread per ray would do it:
+    order and arithmetic (the denominator carried across all triangles, one
+    divide at the end). ``stats`` receives the work as one thread per ray
+    would do it:
     ``tris`` (triangle tests; an any-hit ray stops at its first accepted
     triangle), ``inst`` (instance transforms of the rays still at work), no
     ``inner`` and no ``slabs``, and the distinct records read:
@@ -130,8 +127,6 @@ def dense_plain(
     T = packed_tris(P["pk_tris"])
     w2o = P["pk_w2o"].reshape(-1, 3, 4)
     ranges = P["pk_ranges"].reshape(-1, 2).tolist()
-    if leaf not in ("det2", "quot"):
-        raise ValueError(f"dense intersection has no leaf form {leaf!r}")
     best_t = torch.where(active, maxt, 0.0).to(torch.float32)
     best_den = torch.ones(n, dtype=torch.float32, device=dev)
     best_u = torch.zeros(n, dtype=torch.float32, device=dev)
@@ -155,11 +150,7 @@ def dense_plain(
             width = min(step, first + count - c0)
             tri = torch.arange(c0, c0 + width, device=dev)[None, :].expand(n, width)
             valid = torch.ones((n, width), dtype=torch.bool, device=dev)
-            if leaf == "quot":
-                hit, bt, bu, bv, btri = mt_block(
-                    T, tri, valid, io, idr, best_t, closest=not any_hit
-                )
-            elif any_hit:
+            if any_hit:
                 hit, btri = scan_scaled(
                     _mt_tests_det2(T, tri, io, idr), tri, valid, best_t,
                     closest=False,
@@ -197,7 +188,7 @@ def dense_plain(
         stats["nodes_touched"] = stats.get("nodes_touched", 0)
         stats["tris_touched"] = stats.get("tris_touched", 0) + tris_touched
         stats["inst_touched"] = stats.get("inst_touched", 0) + inst_touched
-    inv = 1.0 / best_den  # 1 for leaf="quot", whose best is a quotient already
+    inv = 1.0 / best_den
     t = torch.where(found, best_t * inv, 0.0)
     return Hit(t, best_inst, best_tri, best_u * inv, best_v * inv, active & found)
 

@@ -269,8 +269,8 @@ class WideLayout(NamedTuple):
 
 
 def traverse_wide(
-    L: WideLayout, o, d, maxt, active, *, any_hit: bool,
-    stats: Optional[dict] = None, leaf: str = "quot",
+    L: WideLayout, o, d, maxt, active, *, any_hit: bool, leaf: str,
+    stats: Optional[dict] = None,
 ) -> Hit:
     """8-wide two-level traversal for all lanes, advanced in lock step: each
     trip every live lane handles the entry it holds (enter an instance, test
@@ -439,7 +439,8 @@ def wide8_plain(
 ) -> Hit:
     """The lock-step 8-wide traversal over boxes and entries kept apart."""
     return traverse_wide(
-        wide8_layout(P), o, d, maxt, active, any_hit=any_hit, stats=stats
+        wide8_layout(P), o, d, maxt, active, any_hit=any_hit, stats=stats,
+        leaf="quot",
     )
 
 

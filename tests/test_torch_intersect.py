@@ -149,7 +149,7 @@ def cases(compiled):
         for any_hit in (False, True):
             key = "any" if any_hit else "closest"
             rec["torch", key] = _torch_hit_to_numpy(
-                tix.intersect_bvh(S_t, *rays_t, any_hit=any_hit)
+                tix.intersect_bvh(S_t, *rays_t, any_hit=any_hit, leaf="quot")
             )
             rec["bvh", key] = _hit_to_numpy(
                 jax.jit(jix.intersect_bvh, static_argnames="any_hit")(
@@ -282,10 +282,10 @@ def test_all_inactive_and_empty_batches(cases):
     o, d, maxt, active = rec["rays_t"]
     dead = torch.zeros_like(active)
     for any_hit in (False, True):
-        hit = tix.intersect_bvh(rec["S_t"], o, d, maxt, dead, any_hit=any_hit)
+        hit = tix.intersect_bvh(rec["S_t"], o, d, maxt, dead, any_hit=any_hit, leaf="quot")
         assert not hit.mask.any() and (hit.t == 0).all()
         none = tix.intersect_bvh(
-            rec["S_t"], o[:0], d[:0], maxt[:0], active[:0], any_hit=any_hit
+            rec["S_t"], o[:0], d[:0], maxt[:0], active[:0], any_hit=any_hit, leaf="quot"
         )
         assert none.mask.shape == (0,)
 
@@ -297,7 +297,9 @@ def test_traversal_stats_count_the_work(cases):
     for name in ("sphere", "instanced"):
         rec = cases[name]
         stats = {}
-        hit = tix.intersect_bvh(rec["S_t"], *rec["rays_t"], any_hit=False, stats=stats)
+        hit = tix.intersect_bvh(
+            rec["S_t"], *rec["rays_t"], any_hit=False, stats=stats, leaf="quot"
+        )
         np.testing.assert_array_equal(hit.tri.numpy(), rec["torch", "closest"]["tri"])
         n_active = int(rec["rays"][3].sum())
         assert stats["tris"] >= int(hit.mask.sum())
@@ -341,7 +343,7 @@ def test_matches_the_pallas_kernel_in_interpret_mode(pallas_batch, any_hit):
     got = _torch_hit_to_numpy(
         tix.intersect_bvh(
             S_t, torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(maxt),
-            torch.from_numpy(active), any_hit=any_hit,
+            torch.from_numpy(active), any_hit=any_hit, leaf="quot",
         )
     )
     if any_hit:

@@ -165,18 +165,22 @@ def test_pack_tris_hh_equals_the_jax_packer(cornell, scenes_dir):
 # ------------------------------------ the kernel body's loop, transcribed
 
 
-def _numpy_leaf(form, tris, tri, valid, o, d, best_t, closest):
+def _numpy_scan(form, tris, tri, valid, o, d, best_t, closest, carry=None):
     """The triangle loop of ``intersect_pallas._kernel`` (``mt_tests`` /
-    ``hh_tests``, ``tier_closest`` / ``tier_any``, the divide at leaf exit)
-    written out in NumPy float32, one column of the block after the other."""
+    ``hh_tests``, ``tier_closest`` / ``tier_any``) written out in NumPy
+    float32, one column of the block after the other. ``carry`` is the best
+    hit so far as ``(t_num, den, u_num, v_num, tri)``; without it a leaf
+    starts at ``(best_t, 1, 0, 0, -1)``. Returns which lanes accepted a
+    triangle, the best hit in the same form, and the first accepted triangle."""
     m, width = tri.shape
     px, py, pz = (o[:, k] for k in range(3))
     qx, qy, qz = (d[:, k] for k in range(3))
     eps = F32(EPS)
     eps2 = F32(EPS * EPS)
-    bt_num, bt_den = best_t.copy(), np.ones(m, F32)
-    bu, bv = np.zeros(m, F32), np.zeros(m, F32)
-    btri = np.full(m, -1, np.int64)
+    if carry is None:
+        carry = (best_t, np.ones(m, F32), np.zeros(m, F32), np.zeros(m, F32),
+                 np.full(m, -1, np.int64))
+    bt_num, bt_den, bu, bv, btri = (x.copy() for x in carry)
     found = np.zeros(m, bool)
     first = np.full(m, -1, np.int64)
     for j in range(width):
@@ -227,6 +231,15 @@ def _numpy_leaf(form, tris, tri, valid, o, d, best_t, closest):
             btri = np.where(ok, tri[:, j], btri)
         first = np.where(ok & ~found, tri[:, j], first)
         found |= ok
+    return found, (bt_num, bt_den, bu, bv, btri), first
+
+
+def _numpy_leaf(form, tris, tri, valid, o, d, best_t, closest):
+    """One leaf visit of the BVH kernels: the loop, then the divide at leaf
+    exit."""
+    found, (bt_num, bt_den, bu, bv, btri), first = _numpy_scan(
+        form, tris, tri, valid, o, d, best_t, closest
+    )
     inv = F32(1.0) / bt_den
     return found, bt_num * inv, bu * inv, bv * inv, btri, first
 
@@ -345,29 +358,58 @@ def test_k3_equals_k1_bit_for_bit(cornell, any_hit):
         assert torch.equal(getattr(k1, f), getattr(k3, f)), f
     assert k1.mask.sum() > 0.3 * k1.mask.shape[0]
     # and neither is the quotient form in disguise
-    quot = tix.intersect_bvh(S_t, *rays, any_hit=False)
+    quot = tix.intersect_bvh(S_t, *rays, any_hit=False, leaf="quot")
     assert not torch.equal(quot.u, k1.u)
 
 
-def test_dense_plain_in_quotient_form_is_the_brute_force_reference(cornell):
-    """``dense_plain(leaf="quot")`` tests every triangle with the quotient
-    form, as the JAX package's ``intersect_brute`` does: the same hits as the
-    quotient-form BVH traversal but for ties, and not the kernel's det² bits."""
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+def test_dense_plain_equals_the_dense_kernel_bodys_loop(cornell, monkeypatch, any_hit):
+    """The loop of ``intersect_pallas_dense._kernel`` transcribed in NumPy:
+    every instance in order, the ray moved into its space once, every
+    triangle of its range in order, the best hit kept as numerators over ONE
+    denominator across all of them and divided once per ray. ``dense_plain``
+    must return the same bits, whatever the width of its chunks."""
     from polaris_tpu_torch.ops import intersect_dense
 
-    scene, S_t = cornell
-    rays = tuple(torch.from_numpy(x) for x in _seeded_rays(scene, seed=52))
-    P = upload_packed(intersect_dense.pack_scene_dense(scene), "cpu")
-    brute = intersect_dense.dense_plain(P, *rays, any_hit=False, leaf="quot")
-    bvh = tix.intersect_bvh(S_t, *rays, any_hit=False)
-    assert torch.equal(brute.mask, bvh.mask)
-    same = brute.mask & (brute.tri == bvh.tri) & (brute.inst == bvh.inst)
-    assert same.sum() >= 0.995 * brute.mask.sum()
-    for f in ("t", "u", "v"):
-        assert torch.equal(getattr(brute, f)[same], getattr(bvh, f)[same]), f
-    det2 = intersect_dense.dense_plain(P, *rays, any_hit=False)
-    assert not torch.equal(det2.u, brute.u)
-    occluded = intersect_dense.dense_plain(P, *rays, any_hit=True, leaf="quot").mask
-    assert torch.equal(occluded, brute.mask)
-    with pytest.raises(ValueError, match="no leaf form"):
-        intersect_dense.dense_plain(P, *rays, any_hit=False, leaf="hh")
+    scene, _ = cornell
+    o, d, maxt, active = _seeded_rays(scene, seed=52)
+    rays = tuple(torch.from_numpy(x) for x in (o, d, maxt, active))
+    host = intersect_dense.pack_scene_dense(scene)
+    P = upload_packed(host, "cpu")
+    n = o.shape[0]
+    rows = host["pk_tris"].reshape(-1, 9)
+    best_t = np.where(active, maxt, F32(0.0)).astype(F32)
+    carry = (best_t, np.ones(n, F32), np.zeros(n, F32), np.zeros(n, F32),
+             np.zeros(n, np.int64))
+    found, inst = np.zeros(n, bool), np.zeros(n, np.int32)
+    ranges = host["pk_ranges"].reshape(-1, 2)
+    assert len(ranges) > 1  # the denominator really crosses instances
+    for ii, (first, count) in enumerate(ranges):
+        m = P["pk_w2o"].reshape(-1, 3, 4)[ii : ii + 1].expand(n, 3, 4)
+        io, idr = tix._xform(m, rays[0], 1).numpy(), tix._xform(m, rays[1], 0).numpy()
+        tri = np.broadcast_to(np.arange(first, first + count), (n, count))
+        hit, new, _ = _numpy_scan(
+            "det2", rows, tri, np.ones((n, count), bool), io, idr, best_t,
+            closest=not any_hit, carry=carry,
+        )
+        if any_hit:
+            hit &= ~found  # a ray stops at its first hit
+        else:
+            carry = new
+            inst = np.where(hit, np.int32(ii), inst)
+        found |= hit
+    inv = F32(1.0) / carry[1]
+    want = {
+        "t": np.where(found, carry[0] * inv, F32(0.0)), "u": carry[2] * inv,
+        "v": carry[3] * inv, "tri": carry[4].astype(np.int32), "inst": inst,
+        "mask": found & active,
+    }
+    assert 0.3 * n < found.sum() < n
+    for pairs in (None, 5 * n):  # the default chunk, and chunks of 5 triangles
+        if pairs:
+            monkeypatch.setattr(intersect_dense, "_PAIRS_PER_STEP", pairs)
+        got = intersect_dense.dense_plain(P, *rays, any_hit=any_hit)
+        np.testing.assert_array_equal(got.mask.numpy(), want["mask"])
+        if not any_hit:
+            for k, v in _torch_hit_to_numpy(got).items():
+                np.testing.assert_array_equal(v, want[k], err_msg=f"{k}, chunks of {pairs}")

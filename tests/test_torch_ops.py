@@ -538,7 +538,7 @@ def hit_frames(cornell_scene, sphere_scene):
         S_t = _torch_scene_dict(scene)
         hit = intersect_bvh(
             S_t, _t(o), _t(d), torch.full((w * h,), TV.FLT_MAX),
-            torch.ones(w * h, dtype=torch.bool), any_hit=False,
+            torch.ones(w * h, dtype=torch.bool), any_hit=False, leaf="quot",
         )
         out[name] = dict(
             scene=scene, S_t=S_t, S_j=_jax_scene_dict(scene), pix=pix, o=o, d=d,

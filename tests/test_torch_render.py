@@ -252,7 +252,7 @@ def textured():
 
 
 @pytest.mark.parametrize("name", ["mitsuba", "dispersive"])
-def test_unported_features_raise_by_name(textured, name):
+def test_textured_scenes_render_like_jax(textured, name):
     """The scenes that used to raise for their textures: the atlas sampler is
     ported, so they upload, say which texture features they hold, and render
     the JAX package's image."""
