@@ -18,12 +18,18 @@ printing one JSON line:
             triangle tests (det^2-scaled Moller-Trumbore, and Havel-Herout as
             'K1hh') on the frame of each of the five benchmark configurations
             at its full size (sphere, mitsuba, cornell, instanced 512x512,
-            dispersive 1024x1024) and on instanced 256x256, the default test
-            also on terrain320k (the scene the JAX package streams triangles
-            for: 'pallas_stream'); K2
-            and K3 on instanced and terrain819k; K4 on sphere, instanced and
-            cornell; K5 on cornell; for each an all-inactive batch and a ray
-            count that is no multiple of the block size. Each kernel's hits
+            dispersive 1024x1024), on instanced 256x256 and on terrain320k
+            (the scene the JAX package streams triangles for:
+            'pallas_stream'); K2 and K3 on instanced and terrain819k; K4 on
+            sphere, instanced and cornell; K5 on cornell; for each an
+            all-inactive batch and a ray count that is no multiple of the
+            block size. K1 and K1hh also on 1, 31 and 33 rays and on a frame
+            with one active lane (the edges of their window fetch and
+            compaction), every set launched twice with equal outputs, and in
+            both staging branches (the scene in shared memory: the five
+            benchmark scenes; in global memory: terrain320k), each check
+            naming its branch, with the bound and the SIMT ceilings on
+            every ray set. Each kernel's hits
             are also held against K1's on the same rays, as far as the two
             share an arithmetic (``cross_check``). Times each on the
             device (launches replayed from a CUDA graph, ``ms``) and as the
@@ -83,8 +89,6 @@ sys.path.insert(0, HERE)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
 XFORM_BYTES = 48  # a 3x4 matrix
-# a [v0, e1, e2] row; a Havel-Herout row [N d0 N1 d1 N2 d2]
-TRI_BYTES = {"quot": 36, "det2": 36, "hh": 48}
 # float operations per unit of traversal work, counted from csrc/traverse_common.cuh
 SLAB_FLOPS = 25  # 6 sub, 6 mul, 10 min/max, 3 compares
 # per triangle test of a closest-hit query, by leaf form:
@@ -144,54 +148,58 @@ MAX_HH_LEVEL_SHARE = 1e-4
 # mode that selects it, the TPU kernel it replaces, the names of its two
 # entries in the ``kernels`` line (closest hit, any hit), which are also its
 # keys in the module's LAUNCHES, its plain version, its leaf form, and the
-# bytes of one node record as the kernel reads it (K1: two data words and a
-# box; K3: a 16-float record; K4: 8 boxes and 8 entries; K2: a 64-float
-# record) and of what it reads once per instance besides the 3x4 matrix.
-# K1hh is K1 with its Havel-Herout triangle test: the same kernel body and
-# library, two entry points of its own
+# bytes of one node record as the kernel reads it (K1: a 64-byte record of
+# two data words and two child boxes; K3: a 16-float record; K4: 8 boxes and
+# 8 entries; K2: a 64-float record), of one triangle (a [v0, e1, e2] row; K1
+# keeps it as three 16-byte words, and its Havel-Herout row [N d0 N1 d1 N2
+# d2] is 48 bytes too) and of what it reads once per instance besides the
+# 3x4 matrix. K1hh is K1 with its Havel-Herout triangle test: the same
+# kernel body and library, two entry points of its own. K1 and K1hh read
+# entry functions of the same names as their LAUNCHES keys
 FAMILIES = {
     "K1": dict(
         module="intersect_cuda", mode="kernel",
         replaces="polaris_tpu/ops/intersect_pallas.py:93",
         names=("closest_hit", "any_hit"), keys=("closest_hit", "any_hit"),
-        plain=None, leaf="det2", node_bytes=32, inst_bytes=4,
+        plain="k1_plain", leaf="det2", node_bytes=64, tri_bytes=48, inst_bytes=16,
     ),
     "K1hh": dict(
         module="intersect_cuda", mode="kernel",
         replaces="polaris_tpu/ops/intersect_pallas.py:271",
         names=("closest_hit_hh", "any_hit_hh"),
         keys=("closest_hit_hh", "any_hit_hh"),
-        plain=None, leaf="hh", node_bytes=32, inst_bytes=4,
+        plain="k1_plain", leaf="hh", node_bytes=64, tri_bytes=48, inst_bytes=16,
     ),
     "K2": dict(
         module="intersect_wide8_nodes", mode="pallas8_nodes",
         replaces="polaris_tpu/ops/intersect_pallas8_nodes.py:246",
         names=("wide8_nodes_closest_hit", "wide8_nodes_any_hit"),
         keys=("closest_hit", "any_hit"), plain="wide8_nodes_plain",
-        leaf="det2", node_bytes=256, inst_bytes=4,
+        leaf="det2", node_bytes=256, tri_bytes=36, inst_bytes=4,
     ),
     "K3": dict(
         module="intersect_nodes", mode="pallas_nodes",
         replaces="polaris_tpu/ops/intersect_pallas_nodes.py:61",
         names=("nodes_closest_hit", "nodes_any_hit"),
         keys=("closest_hit", "any_hit"), plain="nodes_plain", leaf="det2",
-        node_bytes=64, inst_bytes=4,
+        node_bytes=64, tri_bytes=36, inst_bytes=4,
     ),
     "K4": dict(
         module="intersect_wide8", mode="pallas8",
         replaces="polaris_tpu/ops/intersect_pallas8.py:154",
         names=("wide8_closest_hit", "wide8_any_hit"),
         keys=("closest_hit", "any_hit"), plain="wide8_plain", leaf="quot",
-        node_bytes=224, inst_bytes=4,
+        node_bytes=224, tri_bytes=36, inst_bytes=4,
     ),
     "K5": dict(
         module="intersect_dense", mode="pallas_dense",
         replaces="polaris_tpu/ops/intersect_pallas_dense.py:40",
         names=("dense_closest_hit", "dense_any_hit"),
         keys=("closest_hit", "any_hit"), plain="dense_plain", leaf="det2",
-        node_bytes=0, inst_bytes=8,
+        node_bytes=0, tri_bytes=36, inst_bytes=8,
     ),
 }
+K1_FAMILIES = ("K1", "K1hh")
 # how far a kernel's hits must agree with K1's on the same rays
 #   "bits"  every field of every lane equal (K3: the TPU kernels' contract)
 #   "same"  t, u, v equal bit for bit wherever both keep the same triangle;
@@ -278,37 +286,28 @@ def module_of(fam: str):
 
 class Bound:
     """One kernel bound to one uploaded scene: the kernel's two wrappers and
-    its plain version on the scene as that kernel reads it (the uploaded
-    scene itself for K1, the packed arrays for the others)."""
+    its plain version on the scene as that kernel reads it, packed once by
+    ``make_intersectors`` (K1 and K1hh: K1's buffer of 16-byte words, in the
+    leaf form of its triangle test)."""
 
     def __init__(self, fam: str, S):
-        from functools import partial
+        from polaris_tpu_torch.ops.intersect import make_intersectors
 
-        from polaris_tpu_torch.ops.intersect import intersect_bvh, make_intersectors
-
+        spec = FAMILIES[fam]
         self.fam = fam
         self.module = module_of(fam)
-        self._closest, self._any = self.module.closest_hit, self.module.any_hit
-        self.pack_seconds = 0.0
-        if fam == "K1":
-            self.P = S
-            self._plain = partial(intersect_bvh, leaf="det2")
-        elif fam == "K1hh":
-            self.P = S
-            t0 = time.perf_counter()
-            rows = self.module.hh_intersectors(S)[0].tris_hh
-            torch.cuda.synchronize()
-            self.pack_seconds = time.perf_counter() - t0
-            self._closest = lambda S_, *rays: self.module.closest_hit_hh(S_, rows, *rays)
-            self._any = lambda S_, *rays: self.module.any_hit_hh(S_, rows, *rays)
-            self._plain = partial(intersect_bvh, leaf="hh", tris_hh=rows)
-        else:
-            t0 = time.perf_counter()
-            closest, _ = make_intersectors(S, FAMILIES[fam]["mode"])
-            torch.cuda.synchronize()
-            self.pack_seconds = time.perf_counter() - t0
-            self.P = closest.packed
-            self._plain = getattr(self.module, FAMILIES[fam]["plain"])
+        self._closest = getattr(self.module, spec["keys"][0])
+        self._any = getattr(self.module, spec["keys"][1])
+        t0 = time.perf_counter()
+        closest, _ = make_intersectors(
+            S, spec["mode"], tri_test="hh" if spec["leaf"] == "hh" else "mt"
+        )
+        torch.cuda.synchronize()
+        self.pack_seconds = time.perf_counter() - t0
+        self.P = closest.packed
+        self._plain = getattr(self.module, spec["plain"])
+        # K1's staging branch: the scene in shared or in global memory
+        self.staging = self.P.get("staging")
 
     def closest(self, rays):
         return self._closest(self.P, *rays)
@@ -417,6 +416,8 @@ def compare(kern: Bound, rays, any_hit: bool, label: str, stats=None):
         "n_active": int(active.sum()), "mismatched_lanes": mism,
         "max_abs_err": max_err, "plain_ms": plain_ms,
     }
+    if kern.staging is not None:
+        rec["staging"] = kern.staging
     return rec, got
 
 
@@ -480,7 +481,14 @@ def bound_ms(kern: Bound, rays, any_hit: bool, stats: dict):
     of the active lanes only, every output once, and each DISTINCT node
     record, triangle and instance that some ray read, once (not the whole
     scene: the rays of a frame reach a part of it). Operations: slab tests
-    of non-empty children, triangle tests, instance transforms."""
+    of non-empty children, triangle tests, instance transforms. Where the
+    plain version counted work per lane (K1), ``bound_detail`` also carries
+    the two SIMT ceilings of these rays (``simt_ceilings``): the share of a
+    warp's lanes that can do work when every warp lasts as long as its
+    busiest lane, for warps of 32 lanes in launch order and of 32 active
+    lanes."""
+    from polaris_tpu_torch.ops.intersect import simt_ceilings
+
     o, d, maxt, active = rays
     n = int(o.shape[0])
     spec = FAMILIES[kern.fam]
@@ -490,7 +498,7 @@ def bound_ms(kern: Bound, rays, any_hit: bool, stats: dict):
     out_bytes = n * (1 if any_hit else 3 * 4 + 2 * 4 + 1)
     scene_bytes = (
         stats["nodes_touched"] * spec["node_bytes"]
-        + stats["tris_touched"] * TRI_BYTES[leaf]
+        + stats["tris_touched"] * spec["tri_bytes"]
         + stats["inst_touched"] * (XFORM_BYTES + spec["inst_bytes"])
     )
     nbytes = ray_bytes + out_bytes + scene_bytes
@@ -501,7 +509,7 @@ def bound_ms(kern: Bound, rays, any_hit: bool, stats: dict):
     )
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_flops = flops / PEAK_FP32_FLOPS * 1e3
-    return max(t_bytes, t_flops), ("bytes" if t_bytes >= t_flops else "operations"), {
+    detail = {
         "bytes": nbytes, "ray_bytes": ray_bytes, "out_bytes": out_bytes,
         "scene_bytes": scene_bytes, "nodes_touched": stats["nodes_touched"],
         "tris_touched": stats["tris_touched"], "flops": flops,
@@ -510,6 +518,12 @@ def bound_ms(kern: Bound, rays, any_hit: bool, stats: dict):
         "slab_tests_per_ray": stats["slabs"] / max(n, 1),
         "tri_tests_per_ray": stats["tris"] / max(n, 1),
     }
+    if "lane_inner" in stats:
+        detail["simt_ceilings"] = simt_ceilings(
+            stats["lane_inner"] + stats["lane_tris"], active
+        )
+        detail["stack_peak"] = stats["stack_peak"]
+    return max(t_bytes, t_flops), ("bytes" if t_bytes >= t_flops else "operations"), detail
 
 
 class SceneRays:
@@ -549,18 +563,24 @@ def config_rays(ctx, name: str, width: int) -> str:
 
 def phase_kernels(ctx):
     """``ctx``: name -> SceneRays. Returns the twelve entries of the kernels line."""
-    checks, crosses, entries = [], [], {}
+    from polaris_tpu_torch.ops.intersect import Hit
+
+    checks, crosses, entries, repeats = [], [], {}, []
 
     def check_sets(fam, scene_name):
         sr = ctx[scene_name]
         kern = sr.bound(fam)
         out = {}
         for key, any_hit in SETS:
-            stats = {}
+            stats = {"per_lane": True} if fam in K1_FAMILIES else {}
             label = f"{fam}/{sr.name}{sr.frame}/{key}"
             rec, got = compare(kern, sr.rays[key], any_hit, label, stats)
             rec["ms"] = time_ms(lambda: kern.run(sr.rays[key], any_hit), reps=20)
             rec["call_ms"] = call_ms(lambda: kern.run(sr.rays[key], any_hit), reps=20)
+            if fam in K1_FAMILIES:  # K1's bound and SIMT ceilings on every set
+                b_ms, b_by, detail = bound_ms(kern, sr.rays[key], any_hit, stats)
+                rec.update(bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / rec["ms"],
+                           simt_ceilings=detail["simt_ceilings"])
             checks.append(rec)
             if fam != "K1":
                 crosses.append(
@@ -593,6 +613,38 @@ def phase_kernels(ctx):
             rec, _ = compare(kern, ragged, any_hit, f"{fam}/{sr.name}{sr.frame}/ragged-{m}-{key}")
             checks.append(rec)
 
+    def check_k1_schedule(fam, scene_name):
+        """The edges of K1's chunked fetch and compaction: 1, 31 and 33 rays
+        and a frame's rays with one active lane, through both entry points;
+        then every ray set launched twice, every output equal bit for bit
+        (the schedule must not leak into the result)."""
+        sr = ctx[scene_name]
+        kern = sr.bound(fam)
+        where = f"{fam}/{sr.name}{sr.frame}"
+        for key, any_hit in (("primary", False), ("shadow", True)):
+            rays = sr.rays[key]
+            for m in (1, 31, 33):
+                cut = tuple(x[:m].contiguous() for x in rays)
+                checks.append(compare(kern, cut, any_hit, f"{where}/{m}-rays-{key}")[0])
+            live = rays[3].nonzero()[:, 0]
+            one = torch.zeros_like(rays[3])
+            one[live[live.numel() // 2]] = True
+            checks.append(
+                compare(kern, (*rays[:3], one), any_hit, f"{where}/one-active-{key}")[0]
+            )
+        for key, any_hit in SETS:
+            first = kern.run(sr.rays[key], any_hit)
+            again = kern.run(sr.rays[key], any_hit)
+            torch.cuda.synchronize()
+            fields_ = ("mask",) if any_hit else Hit._fields
+            for f in fields_:
+                a = first if any_hit else getattr(first, f)
+                b = again if any_hit else getattr(again, f)
+                if not torch.equal(a, b):
+                    fail(f"{where}/{key}: a second launch changed {f}")
+            repeats.append({"check": f"{where}/{key}/twice", "staging": kern.staging,
+                            "equal": True})
+
     def entry(fam, scene_name, results):
         """The two entry points' lines, timed on the rays of the path that
         launches them: closest hit on primary rays, any hit on shadow rays."""
@@ -623,15 +675,18 @@ def phase_kernels(ctx):
     # scene (2,564 triangles, curved meshes), cornell, the instanced scene
     # (TLAS leaves, transforms, restore on exit) and dispersive's 1,048,576
     # lanes; the instanced scene also at the smaller frame of K2 to K4
-    for fam in ("K1", "K1hh"):
+    for fam in K1_FAMILIES:
         entry(fam, "sphere", check_sets(fam, "sphere"))
         check_sets(fam, "instanced")
         for name, width, _, _ in CONFIGS[1:]:
             check_sets(fam, config_rays(ctx, name, width))
         check_edges(fam, "sphere")
-    # terrain320k, for which the JAX package leaves the triangles in device
-    # memory ('pallas_stream'): here that is this kernel
-    check_sets("K1", "terrain320k")
+        # terrain320k, for which the JAX package leaves the triangles in
+        # device memory ('pallas_stream'): too big for shared memory, so K1
+        # reads it from global memory there, the other staging branch
+        check_sets(fam, "terrain320k")
+        for scene_name in ("sphere", "terrain320k"):
+            check_k1_schedule(fam, scene_name)
     # K2 and K3, the big-scene kernels: instances inside wide nodes, then the
     # 819k-triangle terrain at the big-scene frame's own shapes
     for fam in ("K2", "K3"):
@@ -653,8 +708,16 @@ def phase_kernels(ctx):
         ]
         e["max_abs_err"] = max(c["max_abs_err"] for c in own)
         e["mismatched_lanes"] = sum(c["mismatched_lanes"] for c in own)
+    staged = {c["staging"] for c in checks if c["kernel"] in K1_FAMILIES}
+    if staged != {"shared", "global"}:
+        fail(f"K1 ran in the staging branches {sorted(staged)}, expected both")
     emit(
-        "kernels", checks=checks, against_k1=crosses,
+        "kernels", checks=checks, against_k1=crosses, k1_repeats=repeats,
+        k1_layout={
+            name: {k: sr.bound("K1").P[k] for k in ("staging", "smem_bytes", "stack_need")}
+            for name, sr in ctx.items()
+            if "K1" in sr._bound
+        },
         limits={"t_rtol": T_RTOL, "t_atol": T_ATOL, "max_mismatch_share": MAX_MISMATCH_SHARE,
                 "hh_t_tol": HH_T_TOL},
         against_k1_rules=AGAINST_K1,
@@ -666,19 +729,18 @@ def phase_grid(ctx):
     """Kernel ms of every mode on primary and bounce-1 rays of six scenes,
     1.3k to 819k triangles: three timings of ten launches per cell, least and
     most. Also checks which kernel mode 'auto' picks for each scene."""
-    from polaris_tpu_torch.ops import intersect_cuda
     from polaris_tpu_torch.ops.intersect import AUTO_WIDE_MIN_TRIS, make_intersectors
 
     cells = []
     auto = {}
     for scene_name in GRID_SCENES:
         sr = ctx[scene_name]
-        # what 'auto' picks for this scene: K2's closures carry their packed
-        # scene, K1's wrapper is the module's own function
+        # what 'auto' picks for this scene, by the packed scene its
+        # closures carry
         closest, _ = make_intersectors(sr.S, "auto", tri_test="mt")
-        auto[scene_name] = "K2" if "p8n_nodes" in getattr(closest, "packed", ()) else "K1"
+        auto[scene_name] = "K2" if "p8n_nodes" in closest.packed else "K1"
         want = "K2" if sr.S["tri_v0"].shape[0] >= AUTO_WIDE_MIN_TRIS else "K1"
-        if auto[scene_name] != want or (want == "K1" and closest is not intersect_cuda.closest_hit):
+        if auto[scene_name] != want or (want == "K1" and "k1_words" not in closest.packed):
             fail(f"grid: mode 'auto' picked {auto[scene_name]} for {scene_name}, expected {want}")
         for fam in FAMILIES:
             if fam == "K5" and sr.S["tri_v0"].shape[0] > module_of("K5").DENSE_MAX_TRIS:

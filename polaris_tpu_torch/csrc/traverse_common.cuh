@@ -1,14 +1,18 @@
 // Device code shared by every traversal kernel of the package (sm_90a).
 //
-// All kernels follow one design: ONE THREAD PER RAY, a private stack in local
-// memory, scene arrays read from global memory through the read-only path
-// (__ldg). What differs between them is the node layout, the entry encoding
-// and the child order; what they share lives here:
+// Two designs use it. K2-K5 run ONE THREAD PER RAY in launch order, with a
+// private stack in local memory and the scene read from global memory
+// through the read-only path (__ldg); polaris::launch below starts them. K1
+// (intersect.cu) runs persistent warps that fetch only the live rays, with
+// the scene staged in shared memory where it fits and the stack in shared
+// memory; it has its own launcher. What differs between the kernels is the
+// node layout, the entry encoding and the child order; what they share
+// lives here:
 //
 //   * the ray (origin, direction, reciprocal direction with a 1e-30 floor)
 //   * the slab test: a box is skipped when tf < 0 | tn > tf | tn >= best
 //   * the move into an instance's space by a row-major 3x4 world->object
-//     matrix
+//     matrix (to_instance_rows on three rows wherever they were loaded from)
 //   * the three leaf tests, chosen at compile time by a kernel's LEAF
 //     parameter, each the form its TPU kernel has:
 //       LEAF_QUOT  quotient-form Moller-Trumbore, one divide per triangle:
@@ -21,7 +25,10 @@
 //       LEAF_HH    Havel-Herout precomputed planes on 12-float rows
 //                  [N, d0, N1, d1, N2, d2], det^2-scaled like LEAF_DET2
 //                  (hh_block)
-//     all with strict updates: the first of two equal hits wins
+//     all with strict updates: the first of two equal hits wins. The
+//     scaled forms take a triangle as three 16-byte rows (scaled_math), so a
+//     kernel may load them from its own layout and memory (scan_rows,
+//     leaf_rows with a row loader; tri_rows reads the separate arrays)
 //   * loading a ray and storing a hit (inactive lanes: found = 0, t = 0)
 //
 // Every sum is written in the association of the plain PyTorch versions
@@ -118,20 +125,26 @@ __device__ __forceinline__ float slab(const Ray& r, float mnx, float mny,
     return miss ? FLT_MAX_F : tn;
 }
 
-// move the ray into an instance's space; m: 12 floats, rows of a 3x4 matrix
-__device__ __forceinline__ void to_instance(Ray& r, const float* m) {
-    float m0 = __ldg(m + 0), m1 = __ldg(m + 1), m2 = __ldg(m + 2),
-          m3 = __ldg(m + 3), m4 = __ldg(m + 4), m5 = __ldg(m + 5),
-          m6 = __ldg(m + 6), m7 = __ldg(m + 7), m8 = __ldg(m + 8),
-          m9 = __ldg(m + 9), m10 = __ldg(m + 10), m11 = __ldg(m + 11);
+// move the ray into an instance's space by the rows a, b, c of a 3x4
+// world->object matrix
+__device__ __forceinline__ void to_instance_rows(Ray& r, float4 a, float4 b,
+                                                 float4 c) {
     float px = r.ox, py = r.oy, pz = r.oz, qx = r.dx, qy = r.dy, qz = r.dz;
     set_ray(r,
-            ((m0 * px + m1 * py) + m2 * pz) + m3,
-            ((m4 * px + m5 * py) + m6 * pz) + m7,
-            ((m8 * px + m9 * py) + m10 * pz) + m11,
-            (m0 * qx + m1 * qy) + m2 * qz,
-            (m4 * qx + m5 * qy) + m6 * qz,
-            (m8 * qx + m9 * qy) + m10 * qz);
+            ((a.x * px + a.y * py) + a.z * pz) + a.w,
+            ((b.x * px + b.y * py) + b.z * pz) + b.w,
+            ((c.x * px + c.y * py) + c.z * pz) + c.w,
+            (a.x * qx + a.y * qy) + a.z * qz,
+            (b.x * qx + b.y * qy) + b.z * qz,
+            (c.x * qx + c.y * qy) + c.z * qz);
+}
+
+// the same from 12 floats in global memory, rows of a 3x4 matrix
+__device__ __forceinline__ void to_instance(Ray& r, const float* m) {
+    to_instance_rows(
+        r, make_float4(__ldg(m + 0), __ldg(m + 1), __ldg(m + 2), __ldg(m + 3)),
+        make_float4(__ldg(m + 4), __ldg(m + 5), __ldg(m + 6), __ldg(m + 7)),
+        make_float4(__ldg(m + 8), __ldg(m + 9), __ldg(m + 10), __ldg(m + 11)));
 }
 
 // `count` triangles from `first` against the ray, quotient form. Closest hit
@@ -181,21 +194,19 @@ __device__ __forceinline__ bool test_leaf_quot(const Ray& r, const Tris& tris,
     return false;
 }
 
-// The geometry half of a det^2-scaled test of triangle `tri`: numerators
-// u*det, v*det, t*det and the denominator det^2; true when the ray meets the
-// triangle's plane inside it and in front of the origin. LEAF_DET2 is
-// Moller-Trumbore on [v0, e1, e2]; LEAF_HH the plane equations of a 12-float
-// row, with the hit point scaled by det: P' = det*o + t_raw*d.
+// The geometry half of a det^2-scaled test of one triangle, given as three
+// rows: numerators u*det, v*det, t*det and the denominator det^2; true when
+// the ray meets the triangle's plane inside it and in front of the origin.
+// LEAF_DET2 is Moller-Trumbore on the rows v0, e1, e2 (.w unused); LEAF_HH
+// the plane equations of a 12-float row [N d0], [N1 d1], [N2 d2], with the
+// hit point scaled by det: P' = det*o + t_raw*d.
 template <int LEAF>
-__device__ __forceinline__ bool scaled_tests(const Ray& r, const Tris& tris,
-                                             int tri, float& u_num,
-                                             float& v_num, float& t_num,
-                                             float& det_a) {
-    const size_t at = (size_t)tri * tris.stride;
+__device__ __forceinline__ bool scaled_math(const Ray& r, float4 a, float4 b,
+                                            float4 c, float& u_num,
+                                            float& v_num, float& t_num,
+                                            float& det_a) {
     if constexpr (LEAF == LEAF_HH) {
-        const float4 n = __ldg(reinterpret_cast<const float4*>(tris.v0 + at));
-        const float4 n1 = __ldg(reinterpret_cast<const float4*>(tris.e1 + at));
-        const float4 n2 = __ldg(reinterpret_cast<const float4*>(tris.e2 + at));
+        const float4 n = a, n1 = b, n2 = c;
         float det = (r.dx * n.x + r.dy * n.y) + r.dz * n.z;
         float t_raw = n.w - ((r.ox * n.x + r.oy * n.y) + r.oz * n.z);
         det_a = det * det;
@@ -210,11 +221,8 @@ __device__ __forceinline__ bool scaled_tests(const Ray& r, const Tris& tris,
         ok &= t_num > EPS * det_a;
         return ok;
     } else {
-        const float* p0 = tris.v0 + at;
-        const float* p1 = tris.e1 + at;
-        const float* p2 = tris.e2 + at;
-        float e2x = __ldg(p2 + 0), e2y = __ldg(p2 + 1), e2z = __ldg(p2 + 2);
-        float e1x = __ldg(p1 + 0), e1y = __ldg(p1 + 1), e1z = __ldg(p1 + 2);
+        const float e1x = b.x, e1y = b.y, e1z = b.z;
+        const float e2x = c.x, e2y = c.y, e2z = c.z;
         // pvec = d x e2
         float pvx = r.dy * e2z - r.dz * e2y;
         float pvy = r.dz * e2x - r.dx * e2z;
@@ -222,8 +230,7 @@ __device__ __forceinline__ bool scaled_tests(const Ray& r, const Tris& tris,
         float det = (e1x * pvx + e1y * pvy) + e1z * pvz;
         det_a = det * det;
         bool ok = det_a >= EPS2;
-        float tvx = r.ox - __ldg(p0 + 0), tvy = r.oy - __ldg(p0 + 1),
-              tvz = r.oz - __ldg(p0 + 2);
+        float tvx = r.ox - a.x, tvy = r.oy - a.y, tvz = r.oz - a.z;
         u_num = ((tvx * pvx + tvy * pvy) + tvz * pvz) * det;
         ok &= (u_num >= 0.0f) & (u_num <= det_a);
         // qvec = tvec x e1
@@ -238,22 +245,45 @@ __device__ __forceinline__ bool scaled_tests(const Ray& r, const Tris& tris,
     }
 }
 
-// `count` triangles from `first` through a det^2-scaled test, WITHOUT the
-// closing divide. While it runs, best.t / best.u / best.v hold numerators
-// over `den` (a quotient over den = 1 on entry). Closest hit accepts a
-// triangle when t_num * den < best.t * det_a; with best.t = FLT_MAX the right
-// side overflows to +inf and the compare still holds, as IEEE arithmetic has
-// it. Any hit compares t_num < maxt * det_a and returns at the first one.
-// `accepted` is set when the best hit changed.
-template <bool ANY_HIT, int LEAF>
-__device__ __forceinline__ bool scan_scaled(const Ray& r, const Tris& tris,
-                                            int first, int count, int inst,
-                                            Best& best, float& den,
-                                            bool& accepted) {
+// the three rows of triangle `tri` of `tris` in the kernel's leaf form:
+// v0, e1, e2 (LEAF_DET2) or the Havel-Herout rows (LEAF_HH, 16-byte loads)
+template <int LEAF>
+__device__ __forceinline__ void tri_rows(const Tris& tris, int tri, float4& a,
+                                         float4& b, float4& c) {
+    const size_t at = (size_t)tri * tris.stride;
+    if constexpr (LEAF == LEAF_HH) {
+        a = __ldg(reinterpret_cast<const float4*>(tris.v0 + at));
+        b = __ldg(reinterpret_cast<const float4*>(tris.e1 + at));
+        c = __ldg(reinterpret_cast<const float4*>(tris.e2 + at));
+    } else {
+        const float* p0 = tris.v0 + at;
+        const float* p1 = tris.e1 + at;
+        const float* p2 = tris.e2 + at;
+        c = make_float4(__ldg(p2 + 0), __ldg(p2 + 1), __ldg(p2 + 2), 0.0f);
+        b = make_float4(__ldg(p1 + 0), __ldg(p1 + 1), __ldg(p1 + 2), 0.0f);
+        a = make_float4(__ldg(p0 + 0), __ldg(p0 + 1), __ldg(p0 + 2), 0.0f);
+    }
+}
+
+// `count` triangles from `first` (indices clamped to `last`) through a
+// det^2-scaled test, WITHOUT the closing divide; `rows(tri, a, b, c)` loads
+// a triangle's three rows. While it runs, best.t / best.u / best.v hold
+// numerators over `den` (a quotient over den = 1 on entry). Closest hit
+// accepts a triangle when t_num * den < best.t * det_a; with best.t =
+// FLT_MAX the right side overflows to +inf and the compare still holds, as
+// IEEE arithmetic has it. Any hit compares t_num < maxt * det_a and returns
+// at the first one. `accepted` is set when the best hit changed.
+template <bool ANY_HIT, int LEAF, class Rows>
+__device__ __forceinline__ bool scan_rows(const Ray& r, const Rows& rows,
+                                          int first, int count, int last,
+                                          int inst, Best& best, float& den,
+                                          bool& accepted) {
     for (int j = 0; j < count; ++j) {
-        const int tri = min(first + j, tris.count - 1);
+        const int tri = min(first + j, last);
+        float4 a, b, c;
+        rows(tri, a, b, c);
         float u_num, v_num, t_num, det_a;
-        bool ok = scaled_tests<LEAF>(r, tris, tri, u_num, v_num, t_num, det_a);
+        bool ok = scaled_math<LEAF>(r, a, b, c, u_num, v_num, t_num, det_a);
         if (ANY_HIT) {
             ok &= t_num < best.t * det_a;
             if (ok) {
@@ -277,6 +307,19 @@ __device__ __forceinline__ bool scan_scaled(const Ray& r, const Tris& tris,
     return false;
 }
 
+// scan_rows over the triangles of `tris`
+template <bool ANY_HIT, int LEAF>
+__device__ __forceinline__ bool scan_scaled(const Ray& r, const Tris& tris,
+                                            int first, int count, int inst,
+                                            Best& best, float& den,
+                                            bool& accepted) {
+    const auto rows = [&](int tri, float4& a, float4& b, float4& c) {
+        tri_rows<LEAF>(tris, tri, a, b, c);
+    };
+    return scan_rows<ANY_HIT, LEAF>(r, rows, first, count, tris.count - 1, inst,
+                                    best, den, accepted);
+}
+
 // numerators over `den` back to quotients: one divide
 __device__ __forceinline__ void to_quotients(Best& best, float den) {
     const float inv = 1.0f / den;
@@ -285,10 +328,24 @@ __device__ __forceinline__ void to_quotients(Best& best, float den) {
     best.v = best.v * inv;
 }
 
-// One leaf visit in the kernel's leaf form. The scaled forms start every
-// leaf at den = 1 and divide at its end, so between leaves best.t is a
-// quotient; the divide is skipped when no triangle of the leaf was accepted
-// (x * (1 / 1) is x exactly).
+// One leaf visit of a det^2-scaled form over `rows` (see scan_rows): every
+// leaf starts at den = 1 and divides at its end, so between leaves best.t is
+// a quotient; the divide is skipped when no triangle of the leaf was
+// accepted (x * (1 / 1) is x exactly).
+template <bool ANY_HIT, int LEAF, class Rows>
+__device__ __forceinline__ bool leaf_rows(const Ray& r, const Rows& rows,
+                                          int first, int count, int last,
+                                          int inst, Best& best) {
+    float den = 1.0f;
+    bool accepted = false;
+    if (scan_rows<ANY_HIT, LEAF>(r, rows, first, count, last, inst, best, den,
+                                 accepted))
+        return true;
+    if (accepted) to_quotients(best, den);
+    return false;
+}
+
+// One leaf visit in the kernel's leaf form over the triangles of `tris`.
 template <bool ANY_HIT, int LEAF>
 __device__ __forceinline__ bool test_leaf(const Ray& r, const Tris& tris,
                                           int first, int count, int inst,
@@ -296,13 +353,11 @@ __device__ __forceinline__ bool test_leaf(const Ray& r, const Tris& tris,
     if constexpr (LEAF == LEAF_QUOT) {
         return test_leaf_quot<ANY_HIT>(r, tris, first, count, inst, best);
     } else {
-        float den = 1.0f;
-        bool accepted = false;
-        if (scan_scaled<ANY_HIT, LEAF>(r, tris, first, count, inst, best, den,
-                                       accepted))
-            return true;
-        if (accepted) to_quotients(best, den);
-        return false;
+        const auto rows = [&](int tri, float4& a, float4& b, float4& c) {
+            tri_rows<LEAF>(tris, tri, a, b, c);
+        };
+        return leaf_rows<ANY_HIT, LEAF>(r, rows, first, count, tris.count - 1,
+                                        inst, best);
     }
 }
 

@@ -300,7 +300,7 @@ def mt_block_det2(T: TriArrays, tri, valid, o, d, best_t, *, closest: bool):
     triangle passes when ``det² >= EPS²``, ``0 <= u_num <= det²``,
     ``v_num >= 0``, ``u_num + v_num <= det²`` and ``t_num > EPS*det²``; see
     ``scan_scaled`` for the acceptance. The device helpers
-    ``scaled_tests<LEAF_DET2>`` / ``scan_scaled`` of csrc/traverse_common.cuh
+    ``scaled_math<LEAF_DET2>`` / ``scan_rows`` of csrc/traverse_common.cuh
     repeat it in the same association."""
     return _scaled_block(_mt_tests_det2(T, tri, o, d), tri, valid, best_t, closest)
 
@@ -308,7 +308,7 @@ def mt_block_det2(T: TriArrays, tri, valid, o, d, best_t, *, closest: bool):
 def hh_block(T: HHRows, tri, valid, o, d, best_t, *, closest: bool):
     """Havel–Herout test of ``M`` rays against a block of 12-float rows each,
     det²-scaled with the bookkeeping of ``mt_block_det2``; the device helper
-    is ``scaled_tests<LEAF_HH>``."""
+    is ``scaled_math<LEAF_HH>``."""
     return _scaled_block(_hh_tests(T, tri, o, d), tri, valid, best_t, closest)
 
 
@@ -367,6 +367,26 @@ def tested_in_leaf(hit, first_hit, first, cnt, *, any_hit: bool):
     return torch.where(hit, first_hit - first + 1, cnt)
 
 
+def simt_ceilings(work: torch.Tensor, active: torch.Tensor, warp: int = 32) -> dict:
+    """The share of a warp's lanes that do useful work when every warp runs
+    as long as its busiest lane: ``sum(work) / (warp * sum over warps of the
+    warp's largest work)``, for the lanes taken ``warp`` at a time in launch
+    order (``launch_order``) and for the active lanes only, in their order
+    (``compacted``, what a kernel that hands out only live rays starts
+    from). ``work`` [N] is each lane's count of units (inner visits plus
+    triangle tests, ``traverse_binary``'s per-lane stats); a partial last
+    warp counts as a whole one. ``None`` where there is no work."""
+
+    def ceiling(w):
+        total = int(w.sum())
+        if total == 0:
+            return None
+        w = torch.nn.functional.pad(w, (0, (-w.numel()) % warp))
+        return total / (warp * int(w.view(-1, warp).max(dim=1).values.sum()))
+
+    return {"launch_order": ceiling(work), "compacted": ceiling(work[active])}
+
+
 class BinaryLayout(NamedTuple):
     """What the binary traversal reads of a scene. ``fetch(node)`` maps node
     indices [n] to ``(ld, rd, lmin, lmax, rmin, rmax)``: the node's two data
@@ -384,9 +404,10 @@ class BinaryLayout(NamedTuple):
 
 
 def scene_layout(S, tris_hh: Optional[torch.Tensor] = None) -> BinaryLayout:
-    """The uploaded scene's own arrays (separate ldata/rdata/min/max), as the
-    kernel ``csrc/intersect.cu`` reads them; with ``tris_hh`` the triangles
-    are those flat Havel–Herout rows instead of ``tri_v0/e1/e2``."""
+    """The uploaded scene's own arrays (separate ldata/rdata/min/max); with
+    ``tris_hh`` the triangles are those flat Havel–Herout rows instead of
+    ``tri_v0/e1/e2``. The kernel ``csrc/intersect.cu`` reads the same bits
+    from its own packed copy (``intersect_cuda.k1_layout``)."""
 
     def fetch(node):
         ld = S["bvh_ldata"][node].to(torch.int64)
@@ -442,7 +463,10 @@ def traverse_binary(
     ``tris`` (triangle tests; an any-hit ray stops at its first accepted
     triangle), ``inst`` (instance entries), ``trips`` (host-loop trips), and
     the numbers of distinct records read: ``nodes_touched``,
-    ``tris_touched``, ``inst_touched``.
+    ``tris_touched``, ``inst_touched``. When ``stats`` holds ``per_lane``
+    set true it also receives each lane's own counts, ``lane_inner`` and
+    ``lane_tris`` ([N] int64, summing to ``inner`` and ``tris`` of this
+    call), and ``stack_peak``, the most entries any lane's stack held.
     """
     n = o.shape[0]
     dev = o.device
@@ -470,8 +494,13 @@ def traverse_binary(
     n_inst = torch.zeros((), dtype=torch.int64, device=dev)
     trips = 0
     touched = None
+    per_lane = stats is not None and bool(stats.get("per_lane"))
     if stats is not None:
         touched = Touched(dev, L.num_nodes, num_tris(L.tris), num_inst)
+    if per_lane:
+        lane_inner = torch.zeros(n, dtype=torch.int64, device=dev)
+        lane_tris = torch.zeros(n, dtype=torch.int64, device=dev)
+        stack_peak = torch.zeros((), dtype=torch.int64, device=dev)
 
     while bool((phase != PHASE_DONE).any()):
         trips += 1
@@ -521,6 +550,8 @@ def traverse_binary(
                 tested = tested_in_leaf(hit, btri, -ld[idx], cnt, any_hit=any_hit)
                 touched.runs(-ld[idx], tested)
                 n_tris += tested.sum()
+                if per_lane:
+                    lane_tris[idx] += tested
 
         # ---------- inner node: slab-test both children, near first
         l_dist = _slab_test(cur_o, inv, lmin, lmax, best_t)
@@ -538,6 +569,8 @@ def traverse_binary(
         old = stack[rows, sp_c]
         stack[rows, sp_c] = torch.where(both, far, old)
         sp = torch.where(both, sp + 1, sp)
+        if per_lane:
+            stack_peak = torch.maximum(stack_peak, sp.max())
         node = torch.where(both, near, node)
         node = torch.where(one, torch.where(want_l, ld, rd), node)
         phase = torch.where(none, PHASE_POP, phase)
@@ -561,6 +594,8 @@ def traverse_binary(
             touched.inst[inst_id[is_top]] = True
             n_inner += is_inner.sum()
             n_inst += is_top.sum()
+            if per_lane:
+                lane_inner += is_inner
 
     if stats is not None:
         stats["inner"] = stats.get("inner", 0) + int(n_inner)
@@ -569,6 +604,9 @@ def traverse_binary(
         stats["inst"] = stats.get("inst", 0) + int(n_inst)
         stats["trips"] = stats.get("trips", 0) + trips
         touched.add_to(stats)
+    if per_lane:
+        stats["lane_inner"], stats["lane_tris"] = lane_inner, lane_tris
+        stats["stack_peak"] = int(stack_peak)
 
     t = torch.where(found, best_t, 0.0)
     return Hit(t, best_inst, best_tri, best_u, best_v, active & found)
@@ -621,8 +659,8 @@ def make_intersectors(S, mode: str = "auto", tri_test: Optional[str] = None):
 
     mode (the names of the JAX package's ``make_intersectors`` where there
     is a counterpart):
-      'kernel'        the binary CUDA traversal kernel over the uploaded
-                      scene's own arrays (``intersect_cuda``; the JAX
+      'kernel'        the binary CUDA traversal kernel K1 over its own
+                      packed copy of the scene (``intersect_cuda``; the JAX
                       package's 'pallas'). CUDA tensors only.
       'pallas_stream' the same kernel: on a GPU every scene array already
                       lies in global memory behind L2, so the kernel that
@@ -677,9 +715,7 @@ def make_intersectors(S, mode: str = "auto", tri_test: Optional[str] = None):
                 "mode='kernel' needs the scene on a CUDA device, got "
                 f"{device}; use mode='bvh' for the plain PyTorch traversal"
             )
-        if tri_test == "hh":
-            return intersect_cuda.hh_intersectors(S)
-        return intersect_cuda.closest_hit, intersect_cuda.any_hit
+        return intersect_cuda.intersectors(S, tri_test)
 
     if mode == "bvh":
 

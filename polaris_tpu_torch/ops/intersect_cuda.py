@@ -1,52 +1,221 @@
-"""PyTorch wrappers of the CUDA traversal kernel (``csrc/intersect.cu``).
+"""K1, the binary traversal kernel (``csrc/intersect.cu``): its packed scene,
+its plain PyTorch version and its PyTorch wrappers.
 
-Four entry points. ``closest_hit`` and ``any_hit`` run the kernel's default
-triangle test, det²-scaled Möller–Trumbore, with the signature the
-integrator uses for every traversal backend: ``(S, o, d, maxt, active)``
-with ``o, d`` [N,3] f32, ``maxt`` [N] f32, ``active`` [N] bool. The kernel
-reads the uploaded scene's own tensors (``bvh_min/max/ldata/rdata``,
-``tri_v0/e1/e2``, ``inst_w2o``, ``inst_bvh_root``); nothing is packed or
-copied per call. ``closest_hit_hh`` and ``any_hit_hh`` run the kernel's
-Havel–Herout test and take the flat 12-float rows of
-``ops/intersect.py::pack_tris_hh`` as one more argument;
-``hh_intersectors(S)`` packs them once and returns the pair bound to them.
+``pack_scene_k1`` lays the scene out once, on the host, as the kernel reads
+it: ONE buffer of 16-byte words (int32 here, float bits where a float is
+stored):
+
+  * a 64-byte record per node, in the scene's own node order (the plain
+    version's): ``[ld, rd, left box min, left box max, right box min, right
+    box max, 0, 0]``, ``ld`` and ``rd`` as int bits, the boxes those of the
+    node's two children (zero in a leaf's record), so one record serves both
+    slab tests of an inner node
+  * a 48-byte row per triangle in the leaf form's own layout: ``[v0, 0, e1,
+    0, e2, 0]`` for det²-scaled Möller–Trumbore (``"det2"``), the Havel–Herout
+    row ``[N, d0, N1, d1, N2, d2]`` of ``pack_tris_hh`` for ``"hh"``
+  * a 64-byte row per instance: rows 0-2 of the world->object matrix, then
+    the instance's BLAS root as int bits, ``0, 0, 0``
+
+with ``stack_need``, the most entries a ray's stack can hold in this tree,
+and ``staging``: ``"shared"`` when the buffer and the blocks' stacks fit in
+the shared memory of one block (``SMEM_BUDGET``), so every block of the
+kernel copies the scene there first, else ``"global"``. The roots' own boxes
+(node 0, the BLAS roots) are read by no traversal and are not packed.
+
+``k1_plain`` is the PLAIN VERSION: the binary lock-step traversal of
+``ops/intersect.py`` (``traverse_binary``) reading the packed buffer; it
+equals ``intersect_bvh(S, ..., leaf=...)`` bit for bit, since the buffer
+holds the scene's own bits.
+
+Four entry points, with the signature ``(P, o, d, maxt, active)`` of a packed
+scene ``P`` (``o, d`` [N,3] f32, ``maxt`` [N] f32, ``active`` [N] bool):
+``closest_hit`` / ``any_hit`` on a scene packed for ``"det2"``,
+``closest_hit_hh`` / ``any_hit_hh`` on one packed for ``"hh"``.
+``intersectors(S, tri_test)`` packs an uploaded scene once and returns the
+pair with the integrator's signature ``(S, o, d, maxt, active)``.
 
 On CUDA tensors a wrapper launches the kernel on PyTorch's current stream —
 outputs allocated with ``torch.empty``, no synchronisation — or raises. On
-CPU tensors (and only then) it runs the plain PyTorch version,
-``ops/intersect.py::intersect_bvh`` with ``leaf="det2"`` or ``leaf="hh"``,
-which the CPU tests use. ``LAUNCHES`` counts kernel launches per entry
-point, and nothing else.
+CPU tensors (and only then) it runs the plain version, which the CPU tests
+use. ``LAUNCHES`` counts kernel launches per entry point, and nothing else.
 """
 
 from __future__ import annotations
 
+from typing import Dict, Optional
+
+import numpy as np
 import torch
 
 from . import _launch
-from ._launch import check as _check
-from .intersect import Hit, host_geometry, intersect_bvh, pack_tris_hh
+from .intersect import (
+    STACK_SIZE,
+    BinaryLayout,
+    HHRows,
+    Hit,
+    TriArrays,
+    host_geometry,
+    pack_tris_hh,
+    traverse_binary,
+)
 
 SOURCE = "intersect.cu"
 
 LAUNCHES = {"closest_hit": 0, "any_hit": 0, "closest_hit_hh": 0, "any_hit_hh": 0}
 
-_SCENE_ARGS = (
-    ("bvh_min", torch.float32, 2),
-    ("bvh_max", torch.float32, 2),
-    ("bvh_ldata", torch.int32, 1),
-    ("bvh_rdata", torch.int32, 1),
-    ("tri_v0", torch.float32, 2),
-    ("tri_e1", torch.float32, 2),
-    ("tri_e2", torch.float32, 2),
-    ("inst_w2o", torch.float32, 3),
-    ("inst_bvh_root", torch.int32, 1),
-)
+# 32-bit words per node record, triangle row and instance row
+NODE_WORDS, TRI_WORDS, INST_WORDS = 16, 12, 16
+# threads per block of the kernel (K1_THREADS in csrc/intersect.cu)
+THREADS = 512
+# the shared memory one block may use on an H100 (227 KB, after opting in),
+# less 1 KB kept for the kernel's static shared memory
+SMEM_BUDGET = 232_448 - 1_024
+
+LEAVES = {"mt": "det2", "hh": "hh"}
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def stack_need(scene) -> int:
+    """The most entries a ray's stack can hold: the most inner nodes on one
+    path from the TLAS root down to a BLAS leaf (an inner node pushes at most
+    one entry, its far child, and a pop takes the stack back to a node's
+    ancestors). The plain version and the kernel clamp at ``STACK_SIZE``."""
+    ld = scene.bvh_ldata.astype(np.int64).tolist()
+    rd = scene.bvh_rdata.astype(np.int64).tolist()
+    roots = scene.inst_bvh_root.astype(np.int64).tolist()
+    n, last_inst = len(ld), len(roots) - 1
+
+    def children(v):
+        if ld[v] > 0:
+            return ld[v], rd[v]
+        if rd[v] == 0:  # TLAS leaf -> the instance's BLAS root
+            return (roots[min(max(-ld[v], 0), last_inst)],)
+        return ()
+
+    height = [-1] * n  # inner nodes on the deepest path below a node, inclusive
+    todo, steps = [0], 0
+    while todo:
+        steps += 1
+        if steps > 4 * n + 8:
+            raise ValueError("the BVH has a cycle")
+        v = todo[-1]
+        kids = children(v)
+        if any(k < 0 or k >= n for k in kids):
+            raise ValueError(f"node {v} points outside the {n} nodes")
+        pending = [k for k in kids if height[k] < 0]
+        if pending:
+            todo.extend(pending)
+            continue
+        todo.pop()
+        height[v] = (1 if ld[v] > 0 else 0) + max((height[k] for k in kids), default=0)
+    return height[0]
+
+
+def staging(num_nodes: int, num_tris: int, num_inst: int, stack_cap: int):
+    """``("shared" | "global", bytes)``: the shared memory a block needs for
+    the packed scene and its threads' stacks, and whether that fits in
+    ``SMEM_BUDGET`` so the scene is staged there. The stacks alone always
+    live in shared memory."""
+    scene = 4 * (NODE_WORDS * num_nodes + TRI_WORDS * num_tris + INST_WORDS * num_inst)
+    need = scene + 4 * stack_cap * THREADS
+    return ("shared" if need <= SMEM_BUDGET else "global"), need
+
+
+def pack_scene_k1(scene, leaf: str) -> Dict:
+    """K1's packed scene (see the module docstring) from the host arrays of
+    a compiled scene, for the leaf form ``leaf`` (``"det2"`` or ``"hh"``)."""
+    if leaf not in ("det2", "hh"):
+        raise ValueError(f"K1 runs leaf='det2' or 'hh', not {leaf!r}")
+    ld = scene.bvh_ldata.astype(np.int32)
+    rd = scene.bvh_rdata.astype(np.int32)
+    n, t, i = ld.shape[0], scene.tri_v0.shape[0], scene.inst_w2o.shape[0]
+    if n == 0 or t == 0 or i == 0 or rd.shape[0] != n or scene.inst_bvh_root.shape[0] != i:
+        raise ValueError("scene needs nodes, triangles and instances of matching lengths")
+    need = stack_need(scene)
+    nodes = np.zeros((n, NODE_WORDS), np.int32)
+    boxes = nodes.view(np.float32)
+    nodes[:, 0], nodes[:, 1] = ld, rd
+    inner = ld > 0
+    lc, rc = ld[inner], rd[inner]
+    bmin = scene.bvh_min.astype(np.float32)
+    bmax = scene.bvh_max.astype(np.float32)
+    boxes[inner, 2:5], boxes[inner, 5:8] = bmin[lc], bmax[lc]
+    boxes[inner, 8:11], boxes[inner, 11:14] = bmin[rc], bmax[rc]
+    if leaf == "hh":
+        tris = pack_tris_hh(scene).reshape(t, TRI_WORDS)
+    else:
+        tris = np.zeros((t, TRI_WORDS), np.float32)
+        tris[:, 0:3] = scene.tri_v0
+        tris[:, 4:7] = scene.tri_e1
+        tris[:, 8:11] = scene.tri_e2
+    inst = np.zeros((i, INST_WORDS), np.int32)
+    inst.view(np.float32)[:, :12] = scene.inst_w2o[:, :3, :].astype(np.float32).reshape(i, 12)
+    inst[:, 12] = scene.inst_bvh_root.astype(np.int32)
+    cap = max(1, min(need, STACK_SIZE))
+    where, smem = staging(n, t, i, cap)
+    return {
+        "k1_words": np.concatenate([nodes.ravel(), tris.view(np.int32).ravel(), inst.ravel()]),
+        "leaf": leaf, "num_nodes": n, "num_tris": t, "num_inst": i,
+        "tri_at": n * NODE_WORDS // 4, "inst_at": (n * NODE_WORDS + t * TRI_WORDS) // 4,
+        "stack_need": need, "stack_cap": cap, "staging": where, "smem_bytes": smem,
+    }
+
+
+def upload_k1(packed: Dict, device) -> Dict:
+    """The packed scene on ``device``, its buffer checked once here: the
+    wrappers then check only the rays."""
+    P = _launch.upload_packed(packed, device)
+    words = P["k1_words"]
+    _launch.check("k1_words", words, torch.int32, 1, torch.device(device))
+    n_words = NODE_WORDS * P["num_nodes"] + TRI_WORDS * P["num_tris"] + INST_WORDS * P["num_inst"]
+    if words.numel() != n_words:
+        raise ValueError(f"k1_words: {words.numel()} words, expected {n_words}")
+    return P
+
+
+def _views(P):
+    """(node records [N,16] int32, triangle rows [T,12] f32, instance rows
+    [I,16] int32) of a packed scene."""
+    words = P["k1_words"]
+    a, b = 4 * P["tri_at"], 4 * P["inst_at"]
+    return (
+        words[:a].view(-1, NODE_WORDS),
+        words[a:b].view(torch.float32).view(-1, TRI_WORDS),
+        words[b:].view(-1, INST_WORDS),
+    )
+
+
+def k1_layout(P) -> BinaryLayout:
+    """The packed buffer as the binary traversal reads it."""
+    rec, rows, inst = _views(P)
+    box = rec.view(torch.float32)
+
+    def fetch(node):
+        r, b = rec[node], box[node]
+        return (
+            r[:, 0].to(torch.int64), r[:, 1].to(torch.int64),
+            b[:, 2:5], b[:, 5:8], b[:, 8:11], b[:, 11:14],
+        )
+
+    if P["leaf"] == "hh":
+        tris = HHRows(rows)
+    else:
+        tris = TriArrays(rows[:, 0:3], rows[:, 4:7], rows[:, 8:11])
+    w2o = inst.view(torch.float32)[:, :12].reshape(-1, 3, 4)
+    return BinaryLayout(fetch, tris, w2o, inst[:, 12], int(rec.shape[0]))
+
+
+def k1_plain(
+    P, o, d, maxt, active, *, any_hit: bool, stats: Optional[dict] = None
+) -> Hit:
+    """The plain version of K1 on the packed scene ``P``, in its leaf form."""
+    return traverse_binary(
+        k1_layout(P), o, d, maxt, active, any_hit=any_hit, stats=stats, leaf=P["leaf"]
+    )
 
 
 _LIB = None
@@ -57,107 +226,97 @@ def load():
     Returns ``(closest_hit, any_hit, closest_hit_hh, any_hit_hh)``."""
     global _LIB
     if _LIB is None:
+        scene = "p" + "i" * 7 + "p"
         _LIB = _launch.bind(
-            SOURCE, "polaris_closest_hit", "polaris_any_hit", "p" * 9 + "ii"
+            SOURCE, "polaris_closest_hit", "polaris_any_hit", scene
         ) + _launch.bind(
-            SOURCE, "polaris_closest_hit_hh", "polaris_any_hit_hh", "p" * 7 + "ii"
+            SOURCE, "polaris_closest_hit_hh", "polaris_any_hit_hh", scene
         )
     return _LIB
 
 
-def _scene_pointers(S, device, tris_hh=None):
-    """The kernel's scene arguments; with ``tris_hh`` the one pointer to the
-    Havel–Herout rows takes the place of ``tri_v0/e1/e2``."""
-    ptrs = []
-    for name, dtype, ndim in _SCENE_ARGS:
-        x = S[name]
-        _check(name, x, dtype, ndim, device)
-        if tris_hh is None or not name.startswith("tri_"):
-            ptrs.append(x.data_ptr())
-        elif name == "tri_v0":
-            _check("tris_hh", tris_hh, torch.float32, 1, device)
-            if tris_hh.numel() != 12 * x.shape[0]:
-                raise ValueError(
-                    f"tris_hh: {tris_hh.numel()} floats, expected 12 per "
-                    f"triangle of {x.shape[0]}"
-                )
-            ptrs.append(tris_hh.data_ptr())
-    for name in ("bvh_min", "bvh_max", "tri_v0", "tri_e1", "tri_e2"):
-        if S[name].shape[1] != 3:
-            raise ValueError(f"{name}: expected shape (*, 3), got {tuple(S[name].shape)}")
-    if tuple(S["inst_w2o"].shape[1:]) != (4, 4):
-        raise ValueError("inst_w2o: expected shape (I, 4, 4)")
-    n_nodes = S["bvh_ldata"].shape[0]
-    if n_nodes == 0 or S["bvh_rdata"].shape[0] != n_nodes or S["bvh_min"].shape[0] != n_nodes:
-        raise ValueError("BVH arrays are empty or disagree in length")
-    num_tris = S["tri_v0"].shape[0]
-    num_inst = S["inst_w2o"].shape[0]
-    if num_tris == 0 or num_inst == 0 or S["inst_bvh_root"].shape[0] != num_inst:
-        raise ValueError("scene needs at least one triangle and one instance")
-    return ptrs + [num_tris, num_inst]
+# two counters per (device, stream) for the persistent launch: the next ray
+# to fetch, and the blocks done; the kernel's last block sets both back to 0
+_COUNTERS: Dict = {}
 
 
-def closest_hit(S, o, d, maxt, active) -> Hit:
-    """Closest hit per ray through the CUDA kernel (plain version on CPU)."""
+def _check_leaf(P, leaf: str) -> None:
+    if P["leaf"] != leaf:
+        raise ValueError(f"scene packed for leaf={P['leaf']!r}, this entry runs {leaf!r}")
+
+
+def _scene_args(P, device):
+    """The kernel's scene arguments for rays on ``device``, with the counters
+    of the stream it launches on."""
+    words = P["k1_words"]
+    if words.device != device:
+        raise ValueError(f"k1_words: on {words.device}, the rays on {device}")
+    stream = torch.cuda.current_stream(device).cuda_stream
+    counters = _COUNTERS.get((device, stream))
+    if counters is None:
+        counters = _COUNTERS[device, stream] = torch.zeros(2, dtype=torch.int32, device=device)
+    return [
+        words.data_ptr(), words.numel() // 4, P["num_tris"], P["num_inst"],
+        P["tri_at"], P["inst_at"], P["stack_cap"], int(P["staging"] == "shared"),
+        counters.data_ptr(),
+    ]
+
+
+def _closest(entry: int, key: str, leaf: str, P, o, d, maxt, active) -> Hit:
+    _check_leaf(P, leaf)
     if o.device.type != "cuda":
-        return intersect_bvh(S, o, d, maxt, active, any_hit=False, leaf="det2")
-    hit = _launch.run_closest(
-        load()[0], _scene_pointers(S, o.device), o, d, maxt, active
-    )
-    LAUNCHES["closest_hit"] += 1
+        return k1_plain(P, o, d, maxt, active, any_hit=False)
+    hit = _launch.run_closest(load()[entry], _scene_args(P, o.device), o, d, maxt, active)
+    LAUNCHES[key] += 1
     return hit
 
 
-def any_hit(S, o, d, maxt, active) -> torch.Tensor:
-    """Occlusion mask per ray through the CUDA kernel (plain version on CPU)."""
+def _any(entry: int, key: str, leaf: str, P, o, d, maxt, active) -> torch.Tensor:
+    _check_leaf(P, leaf)
     if o.device.type != "cuda":
-        return intersect_bvh(S, o, d, maxt, active, any_hit=True, leaf="det2").mask
-    found = _launch.run_any(
-        load()[1], _scene_pointers(S, o.device), o, d, maxt, active
-    )
-    LAUNCHES["any_hit"] += 1
+        return k1_plain(P, o, d, maxt, active, any_hit=True).mask
+    found = _launch.run_any(load()[entry], _scene_args(P, o.device), o, d, maxt, active)
+    LAUNCHES[key] += 1
     return found
 
 
-def closest_hit_hh(S, tris_hh, o, d, maxt, active) -> Hit:
-    """Closest hit per ray through the kernel's Havel–Herout test over the
-    rows ``tris_hh`` (plain version on CPU)."""
-    if o.device.type != "cuda":
-        return intersect_bvh(
-            S, o, d, maxt, active, any_hit=False, leaf="hh", tris_hh=tris_hh
-        )
-    hit = _launch.run_closest(
-        load()[2], _scene_pointers(S, o.device, tris_hh), o, d, maxt, active
-    )
-    LAUNCHES["closest_hit_hh"] += 1
-    return hit
+def closest_hit(P, o, d, maxt, active) -> Hit:
+    """Closest hit per ray, det²-scaled Möller–Trumbore (plain version on CPU)."""
+    return _closest(0, "closest_hit", "det2", P, o, d, maxt, active)
 
 
-def any_hit_hh(S, tris_hh, o, d, maxt, active) -> torch.Tensor:
-    """Occlusion mask per ray through the kernel's Havel–Herout test
-    (plain version on CPU)."""
-    if o.device.type != "cuda":
-        return intersect_bvh(
-            S, o, d, maxt, active, any_hit=True, leaf="hh", tris_hh=tris_hh
-        ).mask
-    found = _launch.run_any(
-        load()[3], _scene_pointers(S, o.device, tris_hh), o, d, maxt, active
-    )
-    LAUNCHES["any_hit_hh"] += 1
-    return found
+def any_hit(P, o, d, maxt, active) -> torch.Tensor:
+    """Occlusion mask per ray, det²-scaled Möller–Trumbore (plain version on CPU)."""
+    return _any(1, "any_hit", "det2", P, o, d, maxt, active)
 
 
-def hh_intersectors(S):
-    """``(closest_hit, any_hit)`` with the integrator's signature, bound to
-    the scene's Havel–Herout rows: packed here once, on the host, and
-    uploaded to the scene's device (``closest.tris_hh``)."""
-    tris_hh = torch.from_numpy(pack_tris_hh(host_geometry(S))).to(S["tri_v0"].device)
+def closest_hit_hh(P, o, d, maxt, active) -> Hit:
+    """Closest hit per ray, Havel–Herout test (plain version on CPU)."""
+    return _closest(2, "closest_hit_hh", "hh", P, o, d, maxt, active)
+
+
+def any_hit_hh(P, o, d, maxt, active) -> torch.Tensor:
+    """Occlusion mask per ray, Havel–Herout test (plain version on CPU)."""
+    return _any(3, "any_hit_hh", "hh", P, o, d, maxt, active)
+
+
+def intersectors(S, tri_test: str):
+    """``(closest_hit, any_hit)`` with the integrator's signature for the
+    uploaded scene ``S``, packed here once for ``tri_test`` (``"mt"`` or
+    ``"hh"``), on the host, and uploaded to the scene's device
+    (``closest.packed``; with ``"hh"`` also ``closest.tris_hh``, the flat
+    Havel–Herout rows)."""
+    leaf = LEAVES[tri_test]
+    P = upload_k1(pack_scene_k1(host_geometry(S), leaf), S["tri_v0"].device)
+    c_fn, a_fn = (closest_hit_hh, any_hit_hh) if leaf == "hh" else (closest_hit, any_hit)
 
     def closest(S, o, d, maxt, active):
-        return closest_hit_hh(S, tris_hh, o, d, maxt, active)
+        return c_fn(P, o, d, maxt, active)
 
-    def any_hit(S, o, d, maxt, active):
-        return any_hit_hh(S, tris_hh, o, d, maxt, active)
+    def occluded(S, o, d, maxt, active):
+        return a_fn(P, o, d, maxt, active)
 
-    closest.tris_hh = tris_hh
-    return closest, any_hit
+    closest.packed = P
+    if leaf == "hh":
+        closest.tris_hh = _views(P)[1].reshape(-1)
+    return closest, occluded

@@ -244,13 +244,19 @@ def test_instanced_scene_reaches_several_instances(cases):
 @pytest.mark.parametrize("name", SCENES)
 def test_wrappers_use_the_plain_version_on_cpu_tensors(cases, name):
     """``intersect_cuda.closest_hit`` / ``any_hit`` on CPU tensors run the
-    kernel's plain version (the det²-scaled leaf test), count no kernel
-    launch, and are what 'auto' gives on a CPU scene; 'bvh' stays the
-    quotient form."""
+    kernel's plain version (the det²-scaled leaf test) on K1's packed scene,
+    count no kernel launch, and are what 'auto' gives on a CPU scene; 'bvh'
+    stays the quotient form."""
     rec = cases[name]
     before = dict(intersect_cuda.LAUNCHES)
-    hit = intersect_cuda.closest_hit(rec["S_t"], *rec["rays_t"])
-    occluded = intersect_cuda.any_hit(rec["S_t"], *rec["rays_t"])
+    closest, any_hit = tix.make_intersectors(rec["S_t"], "auto", tri_test="mt")
+    P = closest.packed
+    assert P["leaf"] == "det2" and "k1_words" in P
+    hit = intersect_cuda.closest_hit(P, *rec["rays_t"])
+    occluded = intersect_cuda.any_hit(P, *rec["rays_t"])
+    for k, v in _torch_hit_to_numpy(closest(rec["S_t"], *rec["rays_t"])).items():
+        np.testing.assert_array_equal(v, _torch_hit_to_numpy(hit)[k], err_msg=k)
+    np.testing.assert_array_equal(any_hit(rec["S_t"], *rec["rays_t"]).numpy(), occluded.numpy())
     assert intersect_cuda.LAUNCHES == before
     want = _torch_hit_to_numpy(
         tix.intersect_bvh(rec["S_t"], *rec["rays_t"], any_hit=False, leaf="det2")
@@ -261,8 +267,6 @@ def test_wrappers_use_the_plain_version_on_cpu_tensors(cases, name):
         rec["S_t"], *rec["rays_t"], any_hit=True, leaf="det2"
     ).mask.numpy()
     np.testing.assert_array_equal(occluded.numpy(), want_any)
-    closest, any_hit = tix.make_intersectors(rec["S_t"], "auto", tri_test="mt")
-    assert closest is intersect_cuda.closest_hit and any_hit is intersect_cuda.any_hit
     closest, any_hit = tix.make_intersectors(rec["S_t"], "bvh")
     quot = rec["torch", "closest"]
     for k, v in _torch_hit_to_numpy(closest(rec["S_t"], *rec["rays_t"])).items():

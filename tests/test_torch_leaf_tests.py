@@ -158,7 +158,7 @@ def test_pack_tris_hh_equals_the_jax_packer(cornell, scenes_dir):
     assert np.array_equal(tix.pack_tris_hh(Flat), _pack_tris_hh(Flat))
     assert np.isfinite(tix.pack_tris_hh(Flat)).all()
     # the uploaded scene's own arrays give the same rows
-    rows = intersect_cuda.hh_intersectors(cornell[1])[0].tris_hh
+    rows = intersect_cuda.intersectors(cornell[1], "hh")[0].tris_hh
     assert np.array_equal(rows.numpy(), _pack_tris_hh(cornell[0]))
 
 
@@ -347,12 +347,13 @@ def test_k3_equals_k1_bit_for_bit(cornell, any_hit):
     scene, S_t = cornell
     rays = tuple(torch.from_numpy(x) for x in _seeded_rays(scene, seed=51))
     P = upload_packed(intersect_nodes.pack_scene_nodes(scene), "cpu")
+    P1 = intersect_cuda.intersectors(S_t, "mt")[0].packed
     if any_hit:
-        k1 = intersect_cuda.any_hit(S_t, *rays)
+        k1 = intersect_cuda.any_hit(P1, *rays)
         k3 = intersect_nodes.any_hit(P, *rays)
         assert torch.equal(k1, k3) and k1.any() and not k1.all()
         return
-    k1 = intersect_cuda.closest_hit(S_t, *rays)
+    k1 = intersect_cuda.closest_hit(P1, *rays)
     k3 = intersect_nodes.closest_hit(P, *rays)
     for f in k1._fields:
         assert torch.equal(getattr(k1, f), getattr(k3, f)), f

@@ -232,14 +232,14 @@ def test_mode_switch_edges(scenes, monkeypatch):
     # the 'auto' rule by triangle count holds on a card only: a CPU scene of
     # any size gets the binary kernel's plain version, never a packed mode
     monkeypatch.setattr(tix, "AUTO_WIDE_MIN_TRIS", 1)
-    assert tix.make_intersectors(S, mode="auto", tri_test="mt")[0] is intersect_cuda.closest_hit
+    assert "k1_words" in tix.make_intersectors(S, mode="auto", tri_test="mt")[0].packed
     with pytest.raises(ValueError, match="CUDA"):
         tix.make_intersectors(S, mode="kernel")
     with pytest.raises(ValueError, match="unknown traversal mode"):
         tix.make_intersectors(S, mode="pallas_wide")
     # the streamed variant of K1 is K1: on a CPU scene its wrapper's plain version
     closest, any_hit = tix.make_intersectors(S, mode="pallas_stream", tri_test="mt")
-    assert closest is intersect_cuda.closest_hit and any_hit is intersect_cuda.any_hit
+    assert closest.packed["leaf"] == "det2" and "k1_words" in closest.packed
     # its second triangle test: Havel-Herout rows packed once, for K1 only
     closest, _ = tix.make_intersectors(S, mode="pallas_stream", tri_test="hh")
     assert closest.tris_hh.shape == (12 * S["tri_v0"].shape[0],)
