@@ -43,9 +43,8 @@
 //
 //   1. PERSISTENT WARPS THAT FETCH ONLY LIVE RAYS. The grid fills the card
 //      once (blocks per SM from the occupancy the runtime reports). Each
-//      warp works through windows of 32 ray indices: its first window is
-//      its own, the next ones come from a counter in global memory (one
-//      atomicAdd each). It writes the results of a window's inactive rays
+//      warp takes windows of 32 ray indices from a counter in global memory
+//      (one atomicAdd each), writes the results of a window's inactive rays
 //      at once and hands only the active ones to its lanes (__ballot_sync,
 //      __fns); a lane whose ray is done takes a new one as soon as REFILL
 //      lanes of its warp are free (dynamic fetch, Aila and Laine 2009). The
@@ -61,9 +60,8 @@
 //      words: 64-byte node records [ld, rd, left box, right box], 48-byte
 //      triangle rows, 64-byte instance rows [3x4 matrix, root]. Each block
 //      copies it into shared memory once, by one bulk copy (cp.async.bulk,
-//      completion on an mbarrier, waited for after the first window is
-//      fetched), when the scene and the block's stacks fit; every read is
-//      then a 16-byte shared load, one load level per
+//      completion on an mbarrier), when the scene and the block's stacks
+//      fit; every read is then a 16-byte shared load, one load level per
 //      inner node, and lanes on the same triangle get a broadcast. A scene
 //      that does not fit (the terrains) takes the same kernel reading the
 //      buffer from global memory (template parameter STAGED); the byte
@@ -73,11 +71,10 @@
 //      (the packer's stack_need, at most 64 entries, clamped as the plain
 //      version clamps).
 //
-// What it costs: about 0.011 ms a launch that traces nothing (every lane
-// inactive; the one-thread-per-ray kernel took 0.0035 ms), the round trips a
-// warp waits for when it fetches windows and the copy of the scene. On
-// launches that take 0.02-0.03 ms in all (cornell) that is more than the
-// design saves.
+// What it costs: about 0.015 ms a launch that traces nothing (every lane
+// inactive; the one-thread-per-ray kernel took 0.0035 ms), mostly the
+// counter's atomics and the copy of the scene. On launches that take
+// 0.02-0.03 ms in all (cornell) that is more than the design saves.
 //
 // Tensor cores have no place here: the work is dependent scalar fp32
 // arithmetic whose compares must round as the plain version's do.
@@ -125,10 +122,10 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
     return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// start one bulk copy of the scene into shared memory; its completion is
-// reported on the mbarrier `bar`
-__device__ __forceinline__ void start_staging(float4* dst, const float4* src,
-                                              int num_words, uint64_t* bar) {
+// one bulk copy of the scene into shared memory, waited for on the mbarrier
+// `bar`
+__device__ __forceinline__ void stage_scene(float4* dst, const float4* src,
+                                            int num_words, uint64_t* bar) {
     const uint32_t b = smem_u32(bar);
     if (threadIdx.x == 0) {
         asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(b) : "memory");
@@ -144,17 +141,13 @@ __device__ __forceinline__ void start_staging(float4* dst, const float4* src,
             "[%0], [%1], %2, [%3];"
             ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(b) : "memory");
     }
-}
-
-// wait until the copy started by start_staging has landed
-__device__ __forceinline__ void wait_staging(uint64_t* bar) {
     uint32_t done = 0;
     while (!done) {
         asm volatile(
             "{\n .reg .pred p;\n"
             " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
             " selp.u32 %0, 1, 0, p;\n}"
-            : "=r"(done) : "r"(smem_u32(bar)), "r"(0u) : "memory");
+            : "=r"(done) : "r"(b), "r"(0u) : "memory");
     }
 }
 
@@ -179,10 +172,8 @@ __global__ void __launch_bounds__(K1_THREADS)
     extern __shared__ __align__(16) float4 smem[];
     __shared__ uint64_t bar;
     const float4* base = s.words;
-    // the copy lands while the warps fetch their first rays
-    bool landed = !STAGED;
     if constexpr (STAGED) {
-        start_staging(smem, s.words, s.num_words, &bar);
+        stage_scene(smem, s.words, s.num_words, &bar);
         base = smem;
     }
     // this thread's stack: entry k at stack[k * K1_THREADS]
@@ -204,12 +195,7 @@ __global__ void __launch_bounds__(K1_THREADS)
     Best best;
     int sp = 0, msbi = -1, node = 0, inst = 0;
     // the warp's window: 32 ray indices from win_base, the active ones not
-    // yet handed out in win. The first window of every warp is its own
-    // (warp w takes indices 32w..32w+31), so a launch does not start with
-    // every warp on the counter; the counter hands out the indices after
-    // those of the grid's warps
-    const int grid_rays = gridDim.x * K1_THREADS;
-    int first = blockIdx.x * K1_THREADS + (threadIdx.x & ~31);
+    // yet handed out in win
     int win_base = 0;
     unsigned win = 0;
     bool more = true;
@@ -220,12 +206,9 @@ __global__ void __launch_bounds__(K1_THREADS)
             while (idle) {
                 if (win == 0) {
                     // the next window; its inactive rays get their result now
-                    int b = first;
-                    if (b < 0) {
-                        if (lane == 0) b = (int)atomicAdd(counters, 32u);
-                        b = __shfl_sync(FULL, b, 0) + grid_rays;
-                    }
-                    first = -1;
+                    int b = 0;
+                    if (lane == 0) b = (int)atomicAdd(counters, 32u);
+                    b = __shfl_sync(FULL, b, 0);
                     if (b >= rays.n) {
                         more = false;
                         break;
@@ -257,10 +240,6 @@ __global__ void __launch_bounds__(K1_THREADS)
             }
         }
         if (idle == FULL) break;  // no ray left to fetch, none in flight
-        if (!landed) {
-            wait_staging(&bar);
-            landed = true;
-        }
 
         // while-while: every lane with a ray walks inner nodes and TLAS
         // leaves until each live lane of the warp holds a BLAS leaf or is
@@ -319,10 +298,8 @@ __global__ void __launch_bounds__(K1_THREADS)
         }
     }
 
-    // no block leaves while its copy is in flight. The last block to finish
-    // sets the counters back to 0 for the next launch: by then every block
-    // has had the answer to its last fetch
-    if (!landed) wait_staging(&bar);
+    // the last block to finish sets the counters back to 0 for the next
+    // launch: by then every block has had the answer to its last fetch
     __syncthreads();
     if (threadIdx.x == 0 && atomicAdd(counters + 1, 1u) == gridDim.x - 1) {
         atomicExch(counters, 0u);
