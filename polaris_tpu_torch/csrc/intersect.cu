@@ -71,7 +71,7 @@
 //      (the packer's stack_need, at most 64 entries, clamped as the plain
 //      version clamps).
 //
-// What it costs: about 0.015 ms a launch that traces nothing (every lane
+// What it costs: 0.013-0.014 ms a launch that traces nothing (every lane
 // inactive; the one-thread-per-ray kernel took 0.0035 ms), mostly the
 // counter's atomics and the copy of the scene. On launches that take
 // 0.02-0.03 ms in all (cornell) that is more than the design saves.
