@@ -23,13 +23,18 @@ printing one JSON line:
             'pallas_stream'); K2 and K3 on instanced and terrain819k; K4 on
             sphere, instanced and cornell; K5 on cornell; for each an
             all-inactive batch and a ray count that is no multiple of the
-            block size. K1 and K1hh also on 1, 31 and 33 rays and on a frame
-            with one active lane (the edges of their window fetch and
-            compaction), every set launched twice with equal outputs, and in
-            both staging branches (the scene in shared memory: the five
-            benchmark scenes; in global memory: terrain320k), each check
-            naming its branch, with the bound and the SIMT ceilings on
-            every ray set. Each kernel's hits
+            block size. The kernels on the persistent schedule (K1, K1hh
+            on sphere and terrain320k; K2, K3 on instanced and terrain819k)
+            also on 1, 31 and 33 rays and on a frame with one active lane
+            (the edges of their window fetch and compaction; K3 there also
+            bit for bit against K1), every set launched twice with equal
+            outputs, and in each of their staging branches (K1: the scene in
+            shared memory, the five benchmark scenes, or in global memory,
+            terrain320k; K2, K3: in shared memory, instanced, or in global
+            memory, terrain819k),
+            each check naming its branch, with the bound and the SIMT
+            ceilings on every ray set. Every entry point's line also times a
+            launch with every lane inactive (``empty_ms``). Each kernel's hits
             are also held against K1's on the same rays, as far as the two
             share an arithmetic (``cross_check``). Times each on the
             device (launches replayed from a CUDA graph, ``ms``) and as the
@@ -38,8 +43,8 @@ printing one JSON line:
             version counts these rays to need
   grid      kernel ms of every mode on primary and bounce-1 rays of sphere,
             instanced and four terrains of 20k to 819k triangles (the table
-            behind the 'auto' rule), each cell timed three times, and which
-            kernel 'auto' picks for each scene
+            behind the 'auto' rule), each cell timed three times, and that
+            'auto' picks K1 for each scene
   golden    sphere and mitsuba 32x32, 2 spp, 2 bounces through the kernel,
             with each of its triangle tests, against the accumulators the JAX
             package rendered (tests/fixtures)
@@ -116,7 +121,7 @@ RAGGED = 100_003  # a ray count that is no multiple of the block size
 BIG_GRID, BIG_SPP, BIG_BOUNCES, BIG_RR_AFTER = 640, 4, 3, 4
 STREAM_GRID = 400  # terrain320k: the scene the JAX package streams triangles for
 # the scenes of the mode-by-scene grid; the two mid-size terrains (grids 100
-# and 200) are there to place the 'auto' rule's threshold
+# and 200) are there to show whether 'auto' should leave K1 at some size
 GRID_SCENES = (
     "sphere", "instanced", "terrain20k", "terrain80k", "terrain320k", "terrain819k",
 )
@@ -148,12 +153,13 @@ MAX_HH_LEVEL_SHARE = 1e-4
 # mode that selects it, the TPU kernel it replaces, the names of its two
 # entries in the ``kernels`` line (closest hit, any hit), which are also its
 # keys in the module's LAUNCHES, its plain version, its leaf form, and the
-# bytes of one node record as the kernel reads it (K1: a 64-byte record of
-# two data words and two child boxes; K3: a 16-float record; K4: 8 boxes and
-# 8 entries; K2: a 64-float record), of one triangle (a [v0, e1, e2] row; K1
-# keeps it as three 16-byte words, and its Havel-Herout row [N d0 N1 d1 N2
-# d2] is 48 bytes too) and of what it reads once per instance besides the
-# 3x4 matrix. K1hh is K1 with its Havel-Herout triangle test: the same
+# bytes of one node record as the kernel reads it (K1 and K3: a 64-byte
+# record of two data words and two child boxes; K4: 8 boxes and 8 entries;
+# K2: its own 224-byte record of 8 boxes and 8 ready entries), of one
+# triangle (a [v0, e1, e2] row; K1, K2 and K3 keep it as three 16-byte
+# words, and K1's Havel-Herout row [N d0 N1 d1 N2 d2] is 48 bytes too) and
+# of what it reads once per instance besides the 3x4 matrix (K1, K2, K3: the
+# rest of a 64-byte row). K1hh is K1 with its Havel-Herout triangle test: the same
 # kernel body and library, two entry points of its own. K1 and K1hh read
 # entry functions of the same names as their LAUNCHES keys
 FAMILIES = {
@@ -175,14 +181,14 @@ FAMILIES = {
         replaces="polaris_tpu/ops/intersect_pallas8_nodes.py:246",
         names=("wide8_nodes_closest_hit", "wide8_nodes_any_hit"),
         keys=("closest_hit", "any_hit"), plain="wide8_nodes_plain",
-        leaf="det2", node_bytes=256, tri_bytes=36, inst_bytes=4,
+        leaf="det2", node_bytes=224, tri_bytes=48, inst_bytes=16,
     ),
     "K3": dict(
         module="intersect_nodes", mode="pallas_nodes",
         replaces="polaris_tpu/ops/intersect_pallas_nodes.py:61",
         names=("nodes_closest_hit", "nodes_any_hit"),
         keys=("closest_hit", "any_hit"), plain="nodes_plain", leaf="det2",
-        node_bytes=64, tri_bytes=36, inst_bytes=4,
+        node_bytes=64, tri_bytes=48, inst_bytes=16,
     ),
     "K4": dict(
         module="intersect_wide8", mode="pallas8",
@@ -200,6 +206,9 @@ FAMILIES = {
     ),
 }
 K1_FAMILIES = ("K1", "K1hh")
+# the kernels on the persistent schedule of csrc/traverse_common.cuh: their plain
+# versions count work per lane, for the SIMT ceilings
+PERSISTENT = K1_FAMILIES + ("K2", "K3")
 # how far a kernel's hits must agree with K1's on the same rays
 #   "bits"  every field of every lane equal (K3: the TPU kernels' contract)
 #   "same"  t, u, v equal bit for bit wherever both keep the same triangle;
@@ -566,21 +575,23 @@ def phase_kernels(ctx):
     from polaris_tpu_torch.ops.intersect import Hit
 
     checks, crosses, entries, repeats = [], [], {}, []
+    dead_sets = {}
 
     def check_sets(fam, scene_name):
         sr = ctx[scene_name]
         kern = sr.bound(fam)
         out = {}
         for key, any_hit in SETS:
-            stats = {"per_lane": True} if fam in K1_FAMILIES else {}
+            stats = {"per_lane": True} if fam in PERSISTENT else {}
             label = f"{fam}/{sr.name}{sr.frame}/{key}"
             rec, got = compare(kern, sr.rays[key], any_hit, label, stats)
             rec["ms"] = time_ms(lambda: kern.run(sr.rays[key], any_hit), reps=20)
             rec["call_ms"] = call_ms(lambda: kern.run(sr.rays[key], any_hit), reps=20)
-            if fam in K1_FAMILIES:  # K1's bound and SIMT ceilings on every set
+            if fam in PERSISTENT:  # bound and SIMT ceilings on every set
                 b_ms, b_by, detail = bound_ms(kern, sr.rays[key], any_hit, stats)
                 rec.update(bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / rec["ms"],
-                           simt_ceilings=detail["simt_ceilings"])
+                           simt_ceilings=detail["simt_ceilings"],
+                           stack_peak=detail["stack_peak"])
             checks.append(rec)
             if fam != "K1":
                 crosses.append(
@@ -613,25 +624,29 @@ def phase_kernels(ctx):
             rec, _ = compare(kern, ragged, any_hit, f"{fam}/{sr.name}{sr.frame}/ragged-{m}-{key}")
             checks.append(rec)
 
-    def check_k1_schedule(fam, scene_name):
-        """The edges of K1's chunked fetch and compaction: 1, 31 and 33 rays
-        and a frame's rays with one active lane, through both entry points;
-        then every ray set launched twice, every output equal bit for bit
-        (the schedule must not leak into the result)."""
+    def check_schedule(fam, scene_name):
+        """The edges of the persistent schedule's chunked fetch and
+        compaction (K1, K1hh, K2, K3): 1, 31 and 33 rays and a frame's rays
+        with one active lane, through both entry points (K3 also against
+        K1, bit for bit); then every ray set launched twice, every output
+        equal bit for bit (the schedule must not leak into the result)."""
         sr = ctx[scene_name]
         kern = sr.bound(fam)
         where = f"{fam}/{sr.name}{sr.frame}"
         for key, any_hit in (("primary", False), ("shadow", True)):
             rays = sr.rays[key]
-            for m in (1, 31, 33):
-                cut = tuple(x[:m].contiguous() for x in rays)
-                checks.append(compare(kern, cut, any_hit, f"{where}/{m}-rays-{key}")[0])
             live = rays[3].nonzero()[:, 0]
             one = torch.zeros_like(rays[3])
             one[live[live.numel() // 2]] = True
-            checks.append(
-                compare(kern, (*rays[:3], one), any_hit, f"{where}/one-active-{key}")[0]
-            )
+            cuts = [(f"{m}-rays-{key}", tuple(x[:m].contiguous() for x in rays))
+                    for m in (1, 31, 33)]
+            for name, cut in cuts + [(f"one-active-{key}", (*rays[:3], one))]:
+                rec, got = compare(kern, cut, any_hit, f"{where}/{name}")
+                checks.append(rec)
+                if fam == "K3":
+                    base = sr.bound("K1").run(cut, any_hit)
+                    crosses.append(cross_check(got, base, any_hit, rec["n_rays"],
+                                               f"{where}/{name}", "bits"))
         for key, any_hit in SETS:
             first = kern.run(sr.rays[key], any_hit)
             again = kern.run(sr.rays[key], any_hit)
@@ -644,6 +659,15 @@ def phase_kernels(ctx):
                     fail(f"{where}/{key}: a second launch changed {f}")
             repeats.append({"check": f"{where}/{key}/twice", "staging": kern.staging,
                             "equal": True})
+
+    def empty_ms(fam, scene_name):
+        """A launch with every lane inactive, on the primary rays the
+        kernel's line is timed on: what it costs to trace nothing."""
+        sr = ctx[scene_name]
+        kern = sr.bound(fam)
+        o, d, maxt, alive = sr.rays["primary"]
+        dead = dead_sets.setdefault(scene_name, (o, d, maxt, torch.zeros_like(alive)))
+        return [time_ms(lambda: kern.run(dead, any_hit), reps=20) for any_hit in (False, True)]
 
     def entry(fam, scene_name, results):
         """The two entry points' lines, timed on the rays of the path that
@@ -669,6 +693,9 @@ def phase_kernels(ctx):
                 "bound_by": b_by, "library_ms": None, "bound_detail": detail,
             }
         entries[spec["names"][0]]["ms_bounce1"] = results["bounce1"][0]["ms"]
+        for name, ms in zip(spec["names"], empty_ms(fam, scene_name)):
+            entries[name]["empty_ms"] = ms
+            entries[name]["staging"] = kern.staging
 
     # K1, with each of its two triangle tests, at the shapes the five
     # configurations launch it: the flagship frame, the textured mitsuba
@@ -686,13 +713,17 @@ def phase_kernels(ctx):
         # reads it from global memory there, the other staging branch
         check_sets(fam, "terrain320k")
         for scene_name in ("sphere", "terrain320k"):
-            check_k1_schedule(fam, scene_name)
+            check_schedule(fam, scene_name)
     # K2 and K3, the big-scene kernels: instances inside wide nodes, then the
-    # 819k-triangle terrain at the big-scene frame's own shapes
+    # 819k-triangle terrain at the big-scene frame's own shapes; the
+    # schedule's edges on both, the one scene staged whole, the other in
+    # part or not at all
     for fam in ("K2", "K3"):
         check_sets(fam, "instanced")
         check_edges(fam, "instanced")
         entry(fam, "terrain819k", check_sets(fam, "terrain819k"))
+        for scene_name in ("instanced", "terrain819k"):
+            check_schedule(fam, scene_name)
     # K4 and K5 at the shapes of the cornell frames that launch them
     check_sets("K4", "sphere")
     check_sets("K4", "instanced")
@@ -711,12 +742,25 @@ def phase_kernels(ctx):
     staged = {c["staging"] for c in checks if c["kernel"] in K1_FAMILIES}
     if staged != {"shared", "global"}:
         fail(f"K1 ran in the staging branches {sorted(staged)}, expected both")
+    for fam in ("K2", "K3"):
+        staged = {c["staging"] for c in checks if c["kernel"] == fam}
+        if staged != {"shared", "global"}:
+            fail(f"{fam} ran in the staging branches {sorted(staged)}, expected both")
     emit(
-        "kernels", checks=checks, against_k1=crosses, k1_repeats=repeats,
+        "kernels", checks=checks, against_k1=crosses, schedule_repeats=repeats,
         k1_layout={
             name: {k: sr.bound("K1").P[k] for k in ("staging", "smem_bytes", "stack_need")}
             for name, sr in ctx.items()
             if "K1" in sr._bound
+        },
+        k23_layout={
+            f"{fam}/{name}": {
+                k: sr.bound(fam).P[k]
+                for k in ("staging", "stack_cap", "smem_bytes")
+            }
+            for name, sr in ctx.items()
+            for fam in ("K2", "K3")
+            if fam in sr._bound
         },
         limits={"t_rtol": T_RTOL, "t_atol": T_ATOL, "max_mismatch_share": MAX_MISMATCH_SHARE,
                 "hh_t_tol": HH_T_TOL},
@@ -729,19 +773,18 @@ def phase_grid(ctx):
     """Kernel ms of every mode on primary and bounce-1 rays of six scenes,
     1.3k to 819k triangles: three timings of ten launches per cell, least and
     most. Also checks which kernel mode 'auto' picks for each scene."""
-    from polaris_tpu_torch.ops.intersect import AUTO_WIDE_MIN_TRIS, make_intersectors
+    from polaris_tpu_torch.ops.intersect import make_intersectors
 
     cells = []
     auto = {}
     for scene_name in GRID_SCENES:
         sr = ctx[scene_name]
-        # what 'auto' picks for this scene, by the packed scene its
-        # closures carry
+        # what 'auto' picks for this scene, by the packed scene its closures
+        # carry: K1 at every size on a GPU
         closest, _ = make_intersectors(sr.S, "auto", tri_test="mt")
-        auto[scene_name] = "K2" if "p8n_nodes" in closest.packed else "K1"
-        want = "K2" if sr.S["tri_v0"].shape[0] >= AUTO_WIDE_MIN_TRIS else "K1"
-        if auto[scene_name] != want or (want == "K1" and "k1_words" not in closest.packed):
-            fail(f"grid: mode 'auto' picked {auto[scene_name]} for {scene_name}, expected {want}")
+        auto[scene_name] = "K1" if "k1_words" in closest.packed else "other"
+        if auto[scene_name] != "K1":
+            fail(f"grid: mode 'auto' did not pick K1 for {scene_name}")
         for fam in FAMILIES:
             if fam == "K5" and sr.S["tri_v0"].shape[0] > module_of("K5").DENSE_MAX_TRIS:
                 continue

@@ -1,11 +1,13 @@
 // Device code shared by every traversal kernel of the package (sm_90a).
 //
-// Two designs use it. K2-K5 run ONE THREAD PER RAY in launch order, with a
-// private stack in local memory and the scene read from global memory
-// through the read-only path (__ldg); polaris::launch below starts them. K1
-// (intersect.cu) runs persistent warps that fetch only the live rays, with
-// the scene staged in shared memory where it fits and the stack in shared
-// memory; it has its own launcher. What differs between the kernels is the
+// Two designs use it. K4 and K5 run ONE THREAD PER RAY in launch order,
+// with a private stack in local memory and the scene read from global memory
+// through the read-only path (__ldg); polaris::launch below starts them. K1,
+// K2 and K3 (intersect.cu, intersect_wide8_nodes.cu, intersect_nodes.cu) run
+// persistent warps that fetch only the live rays, with their packed buffer
+// staged in shared memory where it fits, whole or its head, and the stack in
+// shared memory: the persistent schedule at the end of this file, with its
+// own launcher. What differs between the kernels is the
 // node layout, the entry encoding and the child order; what they share
 // lives here:
 //
@@ -43,6 +45,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace polaris {
 
@@ -385,6 +389,402 @@ inline int launch(void (*kernel)(SceneT, Rays), const SceneT& s,
     kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(s, rays);
     return (int)cudaGetLastError();
 }
+
+// ===========================================================================
+// The persistent live-ray schedule shared by the three BVH kernels that walk
+// a packed buffer of 16-byte words: K1 (intersect.cu), K3
+// (intersect_nodes.cu) and K2 (intersect_wide8_nodes.cu). The kernels differ
+// only in their READER, the struct that knows their node layout; everything
+// else is here:
+//
+//   * PERSISTENT WARPS THAT FETCH ONLY LIVE RAYS. The grid fills the card
+//     once (blocks per SM from the occupancy the runtime reports, asked once
+//     per device and shared-memory size). Each warp takes windows of 32 ray
+//     indices from a counter in global memory (one atomicAdd each), writes
+//     the results of a window's inactive rays at once and hands only the
+//     active ones to its lanes (__ballot_sync, __fns); a lane whose ray is
+//     done takes a new one as soon as REFILL lanes of its warp are free
+//     (dynamic fetch, Aila and Laine 2009). The last block to finish resets
+//     the counters, so a launch needs no memset and replays from a CUDA
+//     graph.
+//   * WHILE-WHILE. The lanes of a warp take inner steps (inner nodes and
+//     instance entries, whatever the reader calls a step) until every live
+//     lane holds a triangle leaf or is done (__any_sync), and only then test
+//     leaves, together. Each ray's visits keep their order; only their
+//     timing moves.
+//   * THE BUFFER IN SHARED MEMORY when it fits beside the stacks: each block
+//     copies it there by one bulk copy (cp.async.bulk, completion on an
+//     mbarrier) and every read is a shared load (STAGED); else every read
+//     goes through the read-only path, L1 and L2. The host picks by byte
+//     count. A middle branch, the first node records of a depth-ordered
+//     buffer in shared memory and the rest through L1 (the TPU kernels'
+//     resident prefix), was timed on the H100 and lost to L1 at every size
+//     of prefix: shared memory is carved out of the same SRAM as L1, which
+//     keeps the top of the tree anyway (PERF.md).
+//   * THE STACK IN SHARED MEMORY, laid out [depth][thread] so the 32 lanes
+//     of a warp always fall on 32 banks, sized by the tree's own depth (the
+//     packers' stack_need, clamped as the plain versions clamp).
+//
+// A reader provides
+//
+//   int start()                         the first entry of a ray's walk
+//   int step(cur, r, sp, msbi, inst, best_t, stack, top, first, count)
+//                                       one inner step from entry `cur`:
+//                                       STEP_WALK (cur, the ray, the stack
+//                                       moved on), STEP_LEAF (cur is a
+//                                       triangle leaf of `count` triangles
+//                                       from `first`) or STEP_POP
+//   void rows(tri, a, b, c)             a triangle's three 16-byte rows
+//   int num_tris
+//
+// Every output is the plain version's, bit for bit: the leaf arithmetic is
+// the helpers' above, and the order of a ray's visits is the reader's. The
+// binary reader (K1, K3) follows; K2's wide reader is in traverse_wide.cuh.
+//
+// Each library instantiates these templates with a scene type declared in
+// its own unnamed namespace (K1Scene, K3Scene, K2Scene), so its kernels and
+// launch state have internal linkage: K1's and K3's libraries would
+// otherwise both export the same kernels, and the one loaded second would
+// launch through the first one's.
+
+// threads per block of a persistent kernel
+constexpr int BLOCK = 512;
+constexpr unsigned FULL = 0xffffffffu;
+// a warp fetches more rays when at least this many of its lanes are free
+constexpr int REFILL = 8;
+
+// what an inner step left the lane holding
+constexpr int STEP_WALK = 0, STEP_LEAF = 1, STEP_POP = 2;
+
+// the packed buffer as a kernel reads it: its copy in shared memory
+// (STAGED) or the buffer itself through the read-only path
+template <bool STAGED>
+struct Words {
+    const float4* base;
+
+    __device__ __forceinline__ float4 operator[](int i) const {
+        if constexpr (STAGED) {
+            return base[i];
+        } else {
+            return __ldg(base + i);
+        }
+    }
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// one bulk copy of the first `num_words` words of `src` into shared memory,
+// waited for on the mbarrier `bar`
+__device__ __forceinline__ void stage_words(float4* dst, const float4* src,
+                                            int num_words, uint64_t* bar) {
+    const uint32_t b = smem_u32(bar);
+    if (threadIdx.x == 0) {
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(b) : "memory");
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        const uint32_t bytes = 16u * (uint32_t)num_words;
+        asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                     ::"r"(b), "r"(bytes) : "memory");
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+            "[%0], [%1], %2, [%3];"
+            ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(b) : "memory");
+    }
+    uint32_t done = 0;
+    while (!done) {
+        asm volatile(
+            "{\n .reg .pred p;\n"
+            " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            " selp.u32 %0, 1, 0, p;\n}"
+            : "=r"(done) : "r"(b), "r"(0u) : "memory");
+    }
+}
+
+// the next entry from this thread's stack, restoring the world-space ray
+// when the pop leaves an instance's tree; true when the stack is empty
+__device__ __forceinline__ bool pop_entry(int& sp, int& msbi, int& cur, Ray& r,
+                                          const Ray& world, const int* stack,
+                                          int top) {
+    if (sp == msbi) {
+        r = world;
+        msbi = -1;
+    }
+    --sp;
+    if (sp < 0) return true;
+    cur = stack[min(sp, top) * BLOCK];
+    return false;
+}
+
+// The schedule: every ray of `rays` through the reader `s`, on this
+// thread's stack (entry k at stack[k * BLOCK]) of `top + 1` entries.
+template <bool ANY_HIT, int LEAF, class Reader>
+__device__ __forceinline__ void walk_rays(const Reader& s, const Rays& rays,
+                                          unsigned* __restrict__ counters,
+                                          int* stack, int top) {
+    const int lane = threadIdx.x & 31;
+    const unsigned below = (1u << lane) - 1u;
+
+    const auto rows = [&](int tri, float4& a, float4& b, float4& c) {
+        s.rows(tri, a, b, c);
+    };
+
+    int ray = -1;  // the ray this lane holds, -1 when free
+    Ray world, r;
+    Best best;
+    int sp = 0, msbi = -1, cur = 0, inst = 0;
+    // the warp's window: 32 ray indices from win_base, the active ones not
+    // yet handed out in win
+    int win_base = 0;
+    unsigned win = 0;
+    bool more = true;
+
+    while (true) {
+        unsigned idle = __ballot_sync(FULL, ray < 0);
+        if (more && __popc(idle) >= REFILL) {
+            while (idle) {
+                if (win == 0) {
+                    // the next window; its inactive rays get their result now
+                    int b = 0;
+                    if (lane == 0) b = (int)atomicAdd(counters, 32u);
+                    b = __shfl_sync(FULL, b, 0);
+                    if (b >= rays.n) {
+                        more = false;
+                        break;
+                    }
+                    const int i = b + lane;
+                    const bool live = i < rays.n && rays.active[i];
+                    if (i < rays.n && !live)
+                        store_hit<ANY_HIT>(rays, i, Best{0.0f, 0.0f, 0.0f, 0, 0, false});
+                    win_base = b;
+                    win = __ballot_sync(FULL, live);
+                    continue;
+                }
+                // the k-th free lane takes the k-th active ray of the window
+                const int take = min(__popc(idle), __popc(win));
+                const int rank = __popc(idle & below);
+                if (((idle >> lane) & 1u) && rank < take) {
+                    ray = win_base + (int)__fns(win, 0, rank + 1);
+                    world = load_ray(rays, ray);
+                    r = world;
+                    best = Best{rays.maxt[ray], 0.0f, 0.0f, 0, 0, false};
+                    sp = 0;
+                    msbi = -1;
+                    cur = s.start();
+                    inst = 0;
+                }
+                const int last = (int)__fns(win, 0, take);
+                win = last >= 31 ? 0u : win & (FULL << (last + 1));
+                idle = __ballot_sync(FULL, ray < 0);
+            }
+        }
+        if (idle == FULL) break;  // no ray left to fetch, none in flight
+
+        // while-while: every lane with a ray takes inner steps until each
+        // live lane of the warp holds a triangle leaf or is done; then the
+        // lanes at a leaf test it together
+        bool done = false, at_leaf = false;
+        int first = 0, count = 0;
+        while (__any_sync(FULL, ray >= 0 && !at_leaf && !done)) {
+            if (ray < 0 || at_leaf || done) continue;
+            const int k = s.step(cur, r, sp, msbi, inst, best.t, stack, top, first, count);
+            if (k == STEP_LEAF)
+                at_leaf = true;
+            else if (k == STEP_POP)
+                done = pop_entry(sp, msbi, cur, r, world, stack, top);
+        }
+        if (at_leaf) {
+            if (leaf_rows<ANY_HIT, LEAF>(r, rows, first, count, s.num_tris - 1, inst, best))
+                done = true;  // an any-hit query is settled
+            else
+                done = pop_entry(sp, msbi, cur, r, world, stack, top);
+        }
+        if (done) {
+            store_hit<ANY_HIT>(rays, ray, best);
+            ray = -1;
+        }
+    }
+
+    // the last block to finish sets the counters back to 0 for the next
+    // launch: by then every block has had the answer to its last fetch
+    __syncthreads();
+    if (threadIdx.x == 0 && atomicAdd(counters + 1, 1u) == gridDim.x - 1) {
+        atomicExch(counters, 0u);
+        atomicExch(counters + 1, 0u);
+    }
+}
+
+// A persistent kernel over a Scene: a struct with the packed buffer
+// (`words`, `num_words`), `stack_cap` and `reader(Words<STAGED>)`, which
+// gives the kernel's reader.
+template <bool ANY_HIT, int LEAF, bool STAGED, class Scene>
+__global__ void __launch_bounds__(BLOCK)
+    persistent_kernel(Scene sc, Rays rays, unsigned* __restrict__ counters) {
+    extern __shared__ __align__(16) float4 smem[];
+    __shared__ uint64_t bar;
+    const float4* base = sc.words;
+    if constexpr (STAGED) {
+        stage_words(smem, sc.words, sc.num_words, &bar);
+        base = smem;
+    }
+    int* stack = reinterpret_cast<int*>(smem + (STAGED ? sc.num_words : 0)) + threadIdx.x;
+    walk_rays<ANY_HIT, LEAF>(sc.reader(Words<STAGED>{base}), rays, counters, stack,
+                             sc.stack_cap - 1);
+}
+
+constexpr int MAX_DEVICES = 64;
+
+// persistent blocks per SM of one kernel at one shared-memory size, asked
+// of the runtime once per (device, size) and kept
+struct Occupancy {
+    int device = -1;
+    size_t smem = 0;
+    int blocks = 0;
+};
+
+// Launch the persistent kernel of (ANY_HIT, LEAF, STAGED, Scene) on
+// `stream` with enough blocks to fill the card once; returns
+// cudaGetLastError().
+template <bool ANY_HIT, int LEAF, bool STAGED, class Scene>
+int launch_persistent(const Scene& sc, const Rays& rays, unsigned* counters,
+                      void* stream) {
+    static int sms[MAX_DEVICES];  // SM count per device, 0 until read
+    static bool attr_set[MAX_DEVICES];
+    static Occupancy cache[8];
+    static int next = 0;
+    auto kernel = persistent_kernel<ANY_HIT, LEAF, STAGED, Scene>;
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return (int)err;
+    if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+    if (sms[dev] == 0) {
+        err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+        if (err != cudaSuccess) return (int)err;
+    }
+    if (!attr_set[dev]) {
+        // allow every block the most dynamic shared memory the card offers
+        int optin = 0;
+        cudaFuncAttributes fa;
+        err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+        if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, kernel);
+        if (err == cudaSuccess)
+            err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       optin - (int)fa.sharedSizeBytes);
+        if (err != cudaSuccess) return (int)err;
+        attr_set[dev] = true;
+    }
+    const size_t smem = (STAGED ? 16 * (size_t)sc.num_words : 0) +
+                        sizeof(int) * (size_t)sc.stack_cap * BLOCK;
+    int per_sm = 0;
+    for (const Occupancy& o : cache)
+        if (o.device == dev && o.smem == smem) per_sm = o.blocks;
+    if (per_sm == 0) {
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, BLOCK, smem);
+        if (err != cudaSuccess) return (int)err;
+        if (per_sm == 0) return (int)cudaErrorLaunchOutOfResources;
+        cache[next] = Occupancy{dev, smem, per_sm};
+        next = (next + 1) % 8;
+    }
+    // enough blocks to fill the card once, and no more than the rays need
+    const int wanted = (rays.n + BLOCK - 1) / BLOCK;
+    const int blocks = std::min(sms[dev] * per_sm, wanted);
+    kernel<<<blocks, BLOCK, smem, (cudaStream_t)stream>>>(sc, rays, counters);
+    return (int)cudaGetLastError();
+}
+
+// the launch of the branch the host picked: the buffer `staged` in shared
+// memory, or not
+template <bool ANY_HIT, int LEAF, class Scene>
+int launch_staged(const Scene& sc, int staged, const Rays& rays,
+                  unsigned* counters, void* stream) {
+    if (rays.n <= 0) return (int)cudaSuccess;
+    return staged ? launch_persistent<ANY_HIT, LEAF, true>(sc, rays, counters, stream)
+                  : launch_persistent<ANY_HIT, LEAF, false>(sc, rays, counters, stream);
+}
+
+// ---------------------------------------------------------------------------
+// The binary reader, K1's and K3's: one buffer of 16-byte words, 64-byte
+// node records [ld, rd, left box, right box] (ld, rd as int bits) from word
+// 0, 48-byte triangle rows in the leaf form's layout from tri_at, 64-byte
+// instance rows [3x4 world->object matrix, BLAS root] from inst_at. ld > 0:
+// inner node with children ld and rd; ld <= 0, rd == 0: TLAS leaf of
+// instance -ld; else a BLAS leaf of rd triangles from -ld.
+
+template <bool STAGED>
+struct BinaryReader {
+    Words<STAGED> w;
+    int num_tris, num_inst, tri_at, inst_at;
+
+    __device__ __forceinline__ int start() const { return 0; }
+
+    __device__ __forceinline__ void rows(int tri, float4& a, float4& b,
+                                         float4& c) const {
+        const int at = tri_at + 3 * tri;
+        a = w[at];
+        b = w[at + 1];
+        c = w[at + 2];
+    }
+
+    __device__ __forceinline__ int step(int& node, Ray& r, int& sp, int& msbi,
+                                        int& inst, float best_t, int* stack,
+                                        int top, int& first,
+                                        int& count) const {
+        const float4 w0 = w[4 * node];
+        const int ld = __float_as_int(w0.x);
+        const int rd = __float_as_int(w0.y);
+        if (ld <= 0) {
+            if (rd == 0) {
+                // TLAS leaf: move the ray into the instance's space
+                const int id = min(max(-ld, 0), num_inst - 1);
+                const int at = inst_at + 4 * id;
+                to_instance_rows(r, w[at], w[at + 1], w[at + 2]);
+                msbi = sp;
+                inst = id;
+                node = __float_as_int(w[at + 3].x);
+                return STEP_WALK;
+            }
+            first = -ld;
+            count = rd;
+            return STEP_LEAF;
+        }
+        // inner node: both children's boxes are in its record
+        const float4 w1 = w[4 * node + 1];
+        const float4 w2 = w[4 * node + 2];
+        const float4 w3 = w[4 * node + 3];
+        const float l_dist = slab(r, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w, best_t);
+        const float r_dist = slab(r, w2.x, w2.y, w2.z, w2.w, w3.x, w3.y, best_t);
+        const bool want_l = l_dist < FLT_MAX_F, want_r = r_dist < FLT_MAX_F;
+        if (want_l & want_r) {
+            const bool near_is_l = l_dist <= r_dist;
+            stack[min(sp, top) * BLOCK] = near_is_l ? rd : ld;
+            ++sp;
+            node = near_is_l ? ld : rd;
+            return STEP_WALK;
+        }
+        if (want_l | want_r) {
+            node = want_l ? ld : rd;
+            return STEP_WALK;
+        }
+        return STEP_POP;
+    }
+};
+
+// a binary packed scene (ops/intersect_cuda.py::pack_scene_k1, and K3's
+// own buffer ops/intersect_nodes.py::pack_scene_k3)
+struct BinaryScene {
+    const float4* __restrict__ words;
+    int num_words, num_tris, num_inst;
+    int tri_at, inst_at;
+    int stack_cap;  // stack entries per thread
+
+    template <bool STAGED>
+    __device__ __forceinline__ BinaryReader<STAGED> reader(const Words<STAGED>& w) const {
+        return BinaryReader<STAGED>{w, num_tris, num_inst, tri_at, inst_at};
+    }
+};
 
 }  // namespace polaris
 

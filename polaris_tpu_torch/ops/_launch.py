@@ -110,6 +110,23 @@ def run_any(fn, scene_args: Sequence, o, d, maxt, active) -> torch.Tensor:
     return found
 
 
+# two counters per (device, stream) for the persistent kernels of
+# csrc/traverse_common.cuh (K1, K2, K3): the next ray to fetch, and the blocks
+# done; each launch's last block sets both back to 0, so launches that follow
+# each other on one stream share them
+_COUNTERS: Dict = {}
+
+
+def persistent_counters(device) -> torch.Tensor:
+    """The counters of a persistent launch on the current stream of
+    ``device``, made (zeroed) on first use."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    counters = _COUNTERS.get((device, stream))
+    if counters is None:
+        counters = _COUNTERS[device, stream] = torch.zeros(2, dtype=torch.int32, device=device)
+    return counters
+
+
 def upload_packed(packed: Dict, device) -> Dict:
     """A packer's host arrays as contiguous tensors on ``device``; plain
     ints (counts, limits) pass through."""

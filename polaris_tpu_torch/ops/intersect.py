@@ -618,14 +618,13 @@ _GEOMETRY = (
     "tri_e2", "inst_w2o", "inst_bvh_root",
 )
 
-# 'auto' on a CUDA scene takes the 8-wide record kernel from this many
-# triangles on: measured on the H100 (PERF.md, the mode-by-scene grid of
-# chip_smoke.py), where it is ahead of the binary kernel on primary and on
-# bounce rays alike. The threshold is placed from procedural terrains of one
-# generator only (20k, 80k, 320k, 819k triangles), and while the frame is
-# bound by the host it moves no end-to-end time: place it again, on other
-# kinds of scene too, once the frame is no longer host-bound
-AUTO_WIDE_MIN_TRIS = 80_000
+# 'auto' on a CUDA scene takes the binary kernel K1 at every size: on the
+# H100 it leads the 8-wide record kernel K2 on primary and on bounce rays of
+# every scene of the mode-by-scene grid (PERF.md, chip_smoke.py phase 'grid':
+# sphere, instanced and procedural terrains of 20k to 819k triangles), also
+# after K2 took K1's schedule. The grid holds terrains of one generator only,
+# and while the frame is bound by the host the choice moves no end-to-end
+# time: place it again, on other kinds of scene too, once it is not
 
 MODES = (
     "auto", "kernel", "bvh", "pallas_stream", "pallas_nodes", "pallas8",
@@ -677,10 +676,10 @@ def make_intersectors(S, mode: str = "auto", tri_test: Optional[str] = None):
       'bvh'           the plain PyTorch binary traversal above with the
                       quotient-form triangle test, as the JAX package's
                       'bvh' (any device)
-      'auto'          on a CUDA device 'pallas8_nodes' for a scene of
-                      ``AUTO_WIDE_MIN_TRIS`` triangles or more, else 'kernel';
-                      on the CPU the binary kernel's wrappers, which run its
-                      plain version there
+      'auto'          on a CUDA device 'kernel' at every size (K1 leads
+                      K2 on every scene the grid times); on the CPU the
+                      binary kernel's wrappers, which run its plain version
+                      there
 
     The scene is packed once here, on the host, and the packed arrays are
     uploaded to the scene's device. A mode with a CUDA kernel runs that
@@ -693,12 +692,7 @@ def make_intersectors(S, mode: str = "auto", tri_test: Optional[str] = None):
     device = S["bvh_ldata"].device
     tri_test = resolve_tri_test(tri_test)
     if mode == "auto":
-        if device.type != "cuda":
-            mode = "pallas_stream"
-        elif S["tri_v0"].shape[0] >= AUTO_WIDE_MIN_TRIS:
-            mode = "pallas8_nodes"
-        else:
-            mode = "kernel"
+        mode = "kernel" if device.type == "cuda" else "pallas_stream"
     if mode not in MODES:
         raise ValueError(f"unknown traversal mode {mode!r} ({' | '.join(MODES)})")
     if tri_test == "hh" and mode not in ("kernel", "pallas_stream"):
@@ -741,14 +735,19 @@ def make_intersectors(S, mode: str = "auto", tri_test: Optional[str] = None):
 
     from ._launch import upload_packed
 
-    module_name, packer = {
-        "pallas_nodes": ("intersect_nodes", "pack_scene_nodes"),
-        "pallas8": ("intersect_wide8", "pack_scene8"),
-        "pallas8_nodes": ("intersect_wide8_nodes", "pack_scene8_nodes"),
-        "pallas_dense": ("intersect_dense", "pack_scene_dense"),
+    # the module, its packer (equal to the JAX packer's arrays) and, for the
+    # kernels that read a buffer of their own, the packer of that buffer
+    module_name, packer, own = {
+        "pallas_nodes": ("intersect_nodes", "pack_scene_nodes", "pack_scene_k3"),
+        "pallas8": ("intersect_wide8", "pack_scene8", None),
+        "pallas8_nodes": ("intersect_wide8_nodes", "pack_scene8_nodes", "pack_scene_k2"),
+        "pallas_dense": ("intersect_dense", "pack_scene_dense", None),
     }[mode]
     module = importlib.import_module(f"{__package__}.{module_name}")
-    P = upload_packed(getattr(module, packer)(host_geometry(S)), device)
+    host = getattr(module, packer)(host_geometry(S))
+    if own is not None:
+        host.update(getattr(module, own)(host))
+    P = upload_packed(host, device)
 
     def closest(S, o, d, maxt, active):
         return module.closest_hit(P, o, d, maxt, active)

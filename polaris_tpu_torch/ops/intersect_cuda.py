@@ -22,6 +22,13 @@ the shared memory of one block (``SMEM_BUDGET``), so every block of the
 kernel copies the scene there first, else ``"global"``. The roots' own boxes
 (node 0, the BLAS roots) are read by no traversal and are not packed.
 
+The kernel runs the persistent schedule of ``csrc/traverse_common.cuh``,
+which K2 and K3 share; they read buffers of their own in the same 16-byte words
+(``intersect_wide8_nodes.pack_scene_k2``, ``intersect_nodes.pack_scene_k3``,
+built from ``det2_rows`` and ``instance_rows`` here), staged by the same rule
+(``staging_words``). The kernels of one stream share their two counters
+(``_launch.persistent_counters``).
+
 ``k1_plain`` is the PLAIN VERSION: the binary lock-step traversal of
 ``ops/intersect.py`` (``traverse_binary``) reading the packed buffer; it
 equals ``intersect_bvh(S, ..., leaf=...)`` bit for bit, since the buffer
@@ -121,8 +128,32 @@ def staging(num_nodes: int, num_tris: int, num_inst: int, stack_cap: int):
     ``SMEM_BUDGET`` so the scene is staged there. The stacks alone always
     live in shared memory."""
     scene = 4 * (NODE_WORDS * num_nodes + TRI_WORDS * num_tris + INST_WORDS * num_inst)
-    need = scene + 4 * stack_cap * THREADS
+    return staging_words(scene // 16, stack_cap)
+
+
+def staging_words(num_words: int, stack_cap: int):
+    """The same rule for any buffer of ``num_words`` 16-byte words (K1's,
+    and K2's and K3's own buffers, which run the same schedule)."""
+    need = 16 * num_words + 4 * stack_cap * THREADS
     return ("shared" if need <= SMEM_BUDGET else "global"), need
+
+
+def det2_rows(v0, e1, e2) -> np.ndarray:
+    """48-byte triangle rows ``[v0, 0, e1, 0, e2, 0]`` (f32 [T,12]) of the
+    det²-scaled leaf form, read as three 16-byte words."""
+    rows = np.zeros((v0.shape[0], TRI_WORDS), np.float32)
+    rows[:, 0:3], rows[:, 4:7], rows[:, 8:11] = v0, e1, e2
+    return rows
+
+
+def instance_rows(w2o12, head) -> np.ndarray:
+    """64-byte instance rows (int32 [I,16]): the 12 floats of the 3x4
+    world->object matrix as bits, then the int ``head`` (a BLAS root node, or
+    K2's instance entry), ``0, 0, 0``."""
+    rows = np.zeros((w2o12.shape[0], INST_WORDS), np.int32)
+    rows.view(np.float32)[:, :12] = np.asarray(w2o12, np.float32)
+    rows[:, 12] = np.asarray(head).astype(np.int32)
+    return rows
 
 
 def pack_scene_k1(scene, leaf: str) -> Dict:
@@ -148,13 +179,8 @@ def pack_scene_k1(scene, leaf: str) -> Dict:
     if leaf == "hh":
         tris = pack_tris_hh(scene).reshape(t, TRI_WORDS)
     else:
-        tris = np.zeros((t, TRI_WORDS), np.float32)
-        tris[:, 0:3] = scene.tri_v0
-        tris[:, 4:7] = scene.tri_e1
-        tris[:, 8:11] = scene.tri_e2
-    inst = np.zeros((i, INST_WORDS), np.int32)
-    inst.view(np.float32)[:, :12] = scene.inst_w2o[:, :3, :].astype(np.float32).reshape(i, 12)
-    inst[:, 12] = scene.inst_bvh_root.astype(np.int32)
+        tris = det2_rows(scene.tri_v0, scene.tri_e1, scene.tri_e2)
+    inst = instance_rows(scene.inst_w2o[:, :3, :].reshape(i, 12), scene.inst_bvh_root)
     cap = max(1, min(need, STACK_SIZE))
     where, smem = staging(n, t, i, cap)
     return {
@@ -235,11 +261,6 @@ def load():
     return _LIB
 
 
-# two counters per (device, stream) for the persistent launch: the next ray
-# to fetch, and the blocks done; the kernel's last block sets both back to 0
-_COUNTERS: Dict = {}
-
-
 def _check_leaf(P, leaf: str) -> None:
     if P["leaf"] != leaf:
         raise ValueError(f"scene packed for leaf={P['leaf']!r}, this entry runs {leaf!r}")
@@ -251,14 +272,10 @@ def _scene_args(P, device):
     words = P["k1_words"]
     if words.device != device:
         raise ValueError(f"k1_words: on {words.device}, the rays on {device}")
-    stream = torch.cuda.current_stream(device).cuda_stream
-    counters = _COUNTERS.get((device, stream))
-    if counters is None:
-        counters = _COUNTERS[device, stream] = torch.zeros(2, dtype=torch.int32, device=device)
     return [
         words.data_ptr(), words.numel() // 4, P["num_tris"], P["num_inst"],
         P["tri_at"], P["inst_at"], P["stack_cap"], int(P["staging"] == "shared"),
-        counters.data_ptr(),
+        _launch.persistent_counters(device).data_ptr(),
     ]
 
 

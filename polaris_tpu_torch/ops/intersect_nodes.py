@@ -1,5 +1,6 @@
-"""Binary BVH traversal over 16-float node records: packer, plain PyTorch
-version and the wrappers of the CUDA kernel ``csrc/intersect_nodes.cu``.
+"""K3, binary BVH traversal over depth-ordered 16-float node records: packer,
+plain PyTorch version and the wrappers of the CUDA kernel
+``csrc/intersect_nodes.cu``.
 
 Counterpart of the JAX package's ``ops/intersect_pallas_nodes.py``
 (``_depth_order``, ``pack_scene_nodes``, ``intersect_pallas_nodes``, TPU
@@ -17,28 +18,44 @@ kept is the node layout and the traversal order:
     (``ops/intersect_cuda.py``): near child first by the ray's own entry
     distances; the two agree bit for bit, as the TPU kernels do by contract
 
-Keys of the JAX packer that are DROPPED, because they only stage data for the
-TPU's memories: ``pn_res_ld``, ``pn_res_rd``, ``pn_res_cbox`` and
-``pn_resident`` (the prefix kept resident in SMEM), and the ``STREAM_ALIGN``
-padding at the end of ``pn_nodes`` and ``pn_tris`` (DMA windows). On the GPU
-the whole record array sits in global memory behind L2. Kept, bit for bit:
-``pn_nodes`` (unpadded), ``pn_tris`` (unpadded), ``pn_w2o``, ``pn_roots``.
+``pack_scene_nodes`` equals the JAX packer array for array, but for the keys
+it DROPS because they only stage data for the TPU's memories: ``pn_res_ld``,
+``pn_res_rd``, ``pn_res_cbox`` and ``pn_resident`` (the prefix kept resident
+in SMEM), and the ``STREAM_ALIGN`` padding at the end of ``pn_nodes`` and
+``pn_tris`` (DMA windows). Kept, bit for bit: ``pn_nodes`` (unpadded),
+``pn_tris`` (unpadded), ``pn_w2o``, ``pn_roots``.
+
+``pack_scene_k3`` builds, beside those arrays, the buffer the kernel reads:
+K1's layout (``intersect_cuda.pack_scene_k1``) over the depth-ordered
+records, ``ld``/``rd`` as int bits, 48-byte triangle rows, 64-byte instance
+rows with the BLAS root, with K1's staging rule (``intersect_cuda.
+staging_words``): the whole buffer in shared memory when it fits beside the
+stacks, else read through L1 and L2. The kernel runs K1's persistent
+schedule over that buffer. The TPU kernel's resident prefix has no
+counterpart: kept in shared memory it read slower than L1 does (PERF.md).
 
 ``nodes_plain`` is the PLAIN VERSION of the kernel: the binary lock-step
 traversal of ``ops/intersect.py`` reading the record array. On CUDA tensors
-the wrappers launch the kernel or raise; they take the plain version only
-for CPU tensors. ``LAUNCHES`` counts kernel launches.
+the wrappers launch the kernel on ``P["k3_words"]`` or raise; they take the
+plain version only for CPU tensors. ``LAUNCHES`` counts kernel launches.
 """
 
 from __future__ import annotations
 
 from collections import deque
+from types import SimpleNamespace
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from . import _launch
+from .intersect_cuda import (
+    det2_rows,
+    instance_rows,
+    stack_need,
+    staging_words,
+)
 from .intersect import (
     STACK_SIZE,
     BinaryLayout,
@@ -51,13 +68,6 @@ SOURCE = "intersect_nodes.cu"
 REC = 16  # f32 slots per node record
 
 LAUNCHES = {"closest_hit": 0, "any_hit": 0}
-
-_POINTERS = (
-    ("pn_nodes", torch.float32),
-    ("pn_tris", torch.float32),
-    ("pn_w2o", torch.float32),
-    ("pn_roots", torch.int32),
-)
 
 
 def reset_launches() -> None:
@@ -163,6 +173,33 @@ def nodes_plain(
     )
 
 
+def pack_scene_k3(pn) -> Dict:
+    """K3's own buffer from the host arrays of ``pack_scene_nodes`` (see the
+    module docstring): ``k3_words`` (int32, 16-byte words), the counts the
+    kernel takes, ``stack_need`` of the depth-ordered tree and the staging
+    branch."""
+    rec = np.asarray(pn["pn_nodes"], np.float32).reshape(-1, REC)
+    tris = np.asarray(pn["pn_tris"], np.float32).reshape(-1, 9)
+    w2o = np.asarray(pn["pn_w2o"], np.float32).reshape(-1, 12)
+    roots = np.asarray(pn["pn_roots"], np.int32)
+    n, t, i = rec.shape[0], tris.shape[0], w2o.shape[0]
+    nodes = rec.view(np.int32).copy()
+    nodes[:, 0], nodes[:, 1] = rec[:, 0].astype(np.int32), rec[:, 1].astype(np.int32)
+    need = stack_need(
+        SimpleNamespace(bvh_ldata=nodes[:, 0], bvh_rdata=nodes[:, 1], inst_bvh_root=roots)
+    )
+    cap = max(1, min(need, STACK_SIZE))
+    words = np.concatenate([
+        nodes.ravel(), det2_rows(tris[:, 0:3], tris[:, 3:6], tris[:, 6:9]).view(np.int32).ravel(),
+        instance_rows(w2o, roots).ravel(),
+    ])
+    where, smem = staging_words(words.size // 4, cap)
+    return {
+        "k3_words": words, "num_nodes": n, "num_tris": t, "num_inst": i,
+        "stack_need": need, "stack_cap": cap, "staging": where, "smem_bytes": smem,
+    }
+
+
 _LIB = None
 
 
@@ -171,26 +208,53 @@ def load():
     global _LIB
     if _LIB is None:
         _LIB = _launch.bind(
-            SOURCE, "polaris_nodes_closest_hit", "polaris_nodes_any_hit", "ppppiii"
+            SOURCE, "polaris_nodes_closest_hit", "polaris_nodes_any_hit", "p" + "i" * 6 + "p"
         )
     return _LIB
 
 
+# the arrays of pack_scene_nodes, from which K3's own buffer is built
+_ARRAYS = (
+    ("pn_nodes", torch.float32),
+    ("pn_tris", torch.float32),
+    ("pn_w2o", torch.float32),
+    ("pn_roots", torch.int32),
+)
+
+
 def _scene_args(P, device):
-    ptrs = _launch.packed_pointers(P, _POINTERS, device)
+    """The kernel's scene arguments but the counters: its own buffer, once
+    the packed arrays and the buffer built from them are checked to agree."""
+    _launch.packed_pointers(P, _ARRAYS, device)
     num_nodes = P["pn_nodes"].numel() // REC
     num_tris = P["pn_tris"].numel() // 9
     num_inst = P["pn_w2o"].numel() // 12
     if P["pn_nodes"].numel() % REC or P["pn_roots"].numel() != num_inst:
         raise ValueError("packed node records or roots have the wrong length")
-    return ptrs + [num_nodes, num_tris, num_inst]
+    if "k3_words" not in P:
+        raise ValueError("K3 reads its own buffer: pack the scene with pack_scene_k3 "
+                         "(make_intersectors does)")
+    words = P["k3_words"]
+    _launch.check("k3_words", words, torch.int32, 1, device)
+    n_words = 4 * num_nodes + 3 * num_tris + 4 * num_inst
+    if (P["num_nodes"], P["num_tris"], P["num_inst"]) != (num_nodes, num_tris, num_inst) \
+            or words.numel() != 4 * n_words:
+        raise ValueError("k3_words: not the buffer of these packed arrays (wrong length)")
+    return [
+        words.data_ptr(), n_words, num_nodes, num_tris, num_inst, P["stack_cap"],
+        int(P["staging"] == "shared"),
+    ]
+
+
+def _args(P, device):
+    return _scene_args(P, device) + [_launch.persistent_counters(device).data_ptr()]
 
 
 def closest_hit(P, o, d, maxt, active) -> Hit:
     """Closest hit per ray through the CUDA kernel (plain version on CPU)."""
     if o.device.type != "cuda":
         return nodes_plain(P, o, d, maxt, active, any_hit=False)
-    hit = _launch.run_closest(load()[0], _scene_args(P, o.device), o, d, maxt, active)
+    hit = _launch.run_closest(load()[0], _args(P, o.device), o, d, maxt, active)
     LAUNCHES["closest_hit"] += 1
     return hit
 
@@ -199,6 +263,6 @@ def any_hit(P, o, d, maxt, active) -> torch.Tensor:
     """Occlusion mask per ray through the CUDA kernel (plain version on CPU)."""
     if o.device.type != "cuda":
         return nodes_plain(P, o, d, maxt, active, any_hit=True).mask
-    found = _launch.run_any(load()[1], _scene_args(P, o.device), o, d, maxt, active)
+    found = _launch.run_any(load()[1], _args(P, o.device), o, d, maxt, active)
     LAUNCHES["any_hit"] += 1
     return found

@@ -280,6 +280,11 @@ def traverse_wide(
 
     ``stats`` receives the keys of ``traverse_binary``'s: ``inner`` counts
     wide-node visits and ``slabs`` the slab tests of their non-empty slots.
+    When ``stats`` holds ``per_lane`` set true it also receives each lane's
+    own counts, ``lane_inner`` (wide visits) and ``lane_tris`` (triangle
+    tests) ([N] int64, summing to ``inner`` and ``tris`` of this call), and
+    ``stack_peak``, the most entries any lane's stack held: what
+    ``ops/intersect.py::simt_ceilings`` reads.
     """
     n = o.shape[0]
     dev = o.device
@@ -309,8 +314,13 @@ def traverse_wide(
     n_slabs = torch.zeros((), dtype=i64, device=dev)
     trips = 0
     touched = None
+    per_lane = stats is not None and bool(stats.get("per_lane"))
     if stats is not None:
         touched = Touched(dev, L.num_nodes, L.tris.v0.shape[0], num_inst)
+    if per_lane:
+        lane_inner = torch.zeros(n, dtype=i64, device=dev)
+        lane_tris = torch.zeros(n, dtype=i64, device=dev)
+        stack_peak = torch.zeros((), dtype=i64, device=dev)
 
     while bool(live.any()):
         trips += 1
@@ -356,6 +366,8 @@ def traverse_wide(
                 tested = tested_in_leaf(hit, btri, idx[at], c, any_hit=any_hit)
                 touched.runs(idx[at], tested)
                 n_tris += tested.sum()
+                if per_lane:
+                    lane_tris[at] += tested
         pop = pop | (is_bot & live)
 
         # ---------- wide node: slab all 8 children; nearest first, push rest
@@ -386,12 +398,16 @@ def traverse_wide(
                     stack[rp, torch.clamp(sp_w[p], max=STACK_SIZE - 1)] = ents[p, sl]
                     sp_w = sp_w + p.to(i64)
             sp[at] = sp_w
+            if per_lane:
+                stack_peak = torch.maximum(stack_peak, sp_w.max())
             go = at[hit_any]
             entry[go] = ents.gather(1, near_s[:, None])[:, 0][hit_any]
             pop[at[~hit_any]] = True
             if touched is not None:
                 touched.nodes[idx[at]] = True
                 n_wide += m
+                if per_lane:
+                    lane_inner[at] += 1
                 n_slabs += (e_typ != T_EMPTY).sum()
 
         # ---------- pop (restore the ray when an instance is exhausted)
@@ -415,6 +431,9 @@ def traverse_wide(
         stats["tris"] = stats.get("tris", 0) + int(n_tris)
         stats["inst"] = stats.get("inst", 0) + int(n_inst)
         stats["trips"] = stats.get("trips", 0) + trips
+    if per_lane:
+        stats["lane_inner"], stats["lane_tris"] = lane_inner, lane_tris
+        stats["stack_peak"] = int(stack_peak)
 
     t = torch.where(found, best_t, 0.0)
     return Hit(t, best_inst, best_tri, best_u, best_v, active & found)

@@ -1,4 +1,4 @@
-"""8-wide BVH traversal over 64-float node records, the kernel of the
+"""K2, 8-wide BVH traversal over 64-float node records, the kernel of the
 big-scene path: packer, plain PyTorch version and the wrappers of the CUDA
 kernel ``csrc/intersect_wide8_nodes.cu``.
 
@@ -18,23 +18,43 @@ node layout, the entry encoding and the child order:
     entry split into two exact small floats, ``lo = index``,
     ``hi = typ*64 + count``
 
-The traversal itself is ``ops/intersect_wide8.py::traverse_wide`` with this
-layout's fetch and decoder; the CUDA kernel is a second layout of the same
-device traversal body (``csrc/traverse_wide.cuh``) in a library of its own.
-The leaf test is the TPU kernel's own: det²-scaled Möller–Trumbore
-(``leaf="det2"``, ``ops/intersect.py::mt_block_det2``), where the 8-wide
-kernel with resident nodes divides per triangle.
+The traversal's plain version is ``ops/intersect_wide8.py::traverse_wide``
+with this layout's fetch and decoder. The leaf test is the TPU kernel's own:
+det²-scaled Möller–Trumbore (``leaf="det2"``,
+``ops/intersect.py::mt_block_det2``), where the 8-wide kernel with resident
+nodes divides per triangle.
 
-Keys of the JAX packer that are DROPPED, because they only stage data for the
-TPU's memories: ``p8n_res_entry``, ``p8n_res_boxes`` and ``p8n_resident``
-(the node prefix kept resident in SMEM) and the ``STREAM_ALIGN`` padding at
-the end of ``p8n_nodes`` and ``p8n_tris`` (DMA windows). Kept, bit for bit:
+``pack_scene8_nodes`` equals the JAX packer array for array, but for the keys
+it DROPS because they only stage data for the TPU's memories:
+``p8n_res_entry``, ``p8n_res_boxes`` and ``p8n_resident`` (the node prefix
+kept resident in SMEM) and the ``STREAM_ALIGN`` padding at the end of
+``p8n_nodes`` and ``p8n_tris`` (DMA windows). Kept, bit for bit:
 ``p8n_nodes`` (unpadded), ``p8n_tris`` (unpadded), ``p8n_w2o``, ``p8n_root``,
 ``p8n_inst_entry``. Added: the plain ints ``root_entry`` and ``stack_need``
 (see ``ops/intersect_wide8.py``).
 
-On CUDA tensors the wrappers launch the kernel or raise; they take the plain
-version only for CPU tensors. ``LAUNCHES`` counts kernel launches.
+``pack_scene_k2`` builds, beside those arrays, the buffer the kernel reads
+(``csrc/intersect_wide8_nodes.cu``), one buffer of 16-byte words:
+
+  * a 224-byte record per wide node, in the same depth order: the 48 box
+    floats as twelve words (children ``2p`` and ``2p+1`` in words
+    ``3p .. 3p+2``), then the 8 entries as two words of ready
+    ``typ<<30 | count<<24 | index`` ints in place of the float pairs
+    ``(lo, hi)``
+  * 48-byte triangle rows ``[v0, 0, e1, 0, e2, 0]`` and 64-byte instance
+    rows ``[3x4 matrix, the instance's entry, 0, 0, 0]``
+
+with the stack the kernel gives each thread (``stack_need``, clamped at
+``STACK_SIZE`` as the plain version clamps) and K1's staging rule
+(``intersect_cuda.staging_words``): the whole buffer in shared memory when
+it fits beside the stacks, else read through L1 and L2. The kernel runs K1's
+persistent schedule (``csrc/traverse_common.cuh``) over that buffer. The TPU
+kernel's resident prefix has no counterpart: kept in shared memory it read
+slower than L1 does (PERF.md).
+
+On CUDA tensors the wrappers launch the kernel on ``P["k2_words"]`` or raise;
+they take the plain version only for CPU tensors. ``LAUNCHES`` counts kernel
+launches.
 """
 
 from __future__ import annotations
@@ -47,7 +67,9 @@ import torch
 
 from . import _launch
 from .intersect import Hit, packed_tris
+from .intersect_cuda import det2_rows, instance_rows, staging_words
 from .intersect_wide8 import (
+    STACK_SIZE,
     T_TOP,
     T_WIDE,
     WIDTH,
@@ -62,14 +84,10 @@ from .intersect_wide8 import (
 SOURCE = "intersect_wide8_nodes.cu"
 REC = 64  # f32 slots per wide-node record
 
-LAUNCHES = {"closest_hit": 0, "any_hit": 0}
+# 16-byte words of one of the kernel's own records: 12 of boxes, 2 of entries
+REC_WORDS = 14
 
-_POINTERS = (
-    ("p8n_nodes", torch.float32),
-    ("p8n_inst_entry", torch.int32),
-    ("p8n_tris", torch.float32),
-    ("p8n_w2o", torch.float32),
-)
+LAUNCHES = {"closest_hit": 0, "any_hit": 0}
 
 
 def reset_launches() -> None:
@@ -193,6 +211,33 @@ def wide8_nodes_plain(
     )
 
 
+def pack_scene_k2(p8n) -> Dict:
+    """K2's own buffer from the host arrays of ``pack_scene8_nodes`` (see the
+    module docstring): ``k2_words`` (int32, 16-byte words), the counts the
+    kernel takes and the staging branch."""
+    rec = np.asarray(p8n["p8n_nodes"], np.float32).reshape(-1, REC)
+    tris = np.asarray(p8n["p8n_tris"], np.float32).reshape(-1, 9)
+    w2o = np.asarray(p8n["p8n_w2o"], np.float32).reshape(-1, 12)
+    n, t, i = rec.shape[0], tris.shape[0], w2o.shape[0]
+    records = np.zeros((n, 4 * REC_WORDS), np.int32)
+    records[:, :48] = rec[:, :48].view(np.int32)
+    lo = rec[:, 48::2].astype(np.int64)
+    hi = rec[:, 49::2].astype(np.int64)
+    records[:, 48:] = _as_i32((hi << 24) | lo)
+    need = int(p8n["stack_need"])
+    check_stack(need)
+    cap = max(1, min(need, STACK_SIZE))
+    words = np.concatenate([
+        records.ravel(), det2_rows(tris[:, 0:3], tris[:, 3:6], tris[:, 6:9]).view(np.int32).ravel(),
+        instance_rows(w2o, p8n["p8n_inst_entry"]).ravel(),
+    ])
+    where, smem = staging_words(words.size // 4, cap)
+    return {
+        "k2_words": words, "num_wide": n, "num_tris": t, "num_inst": i,
+        "stack_cap": cap, "staging": where, "smem_bytes": smem,
+    }
+
+
 _LIB = None
 
 
@@ -202,27 +247,54 @@ def load():
     if _LIB is None:
         _LIB = _launch.bind(
             SOURCE, "polaris_wide8_nodes_closest_hit",
-            "polaris_wide8_nodes_any_hit", "pppp" + "iiii",
+            "polaris_wide8_nodes_any_hit", "p" + "i" * 7 + "p",
         )
     return _LIB
 
 
+# the arrays of pack_scene8_nodes, from which K2's own buffer is built
+_ARRAYS = (
+    ("p8n_nodes", torch.float32),
+    ("p8n_inst_entry", torch.int32),
+    ("p8n_tris", torch.float32),
+    ("p8n_w2o", torch.float32),
+)
+
+
 def _scene_args(P, device):
-    ptrs = _launch.packed_pointers(P, _POINTERS, device)
+    """The kernel's scene arguments but the counters: its own buffer, once
+    the packed arrays and the buffer built from them are checked to agree."""
+    _launch.packed_pointers(P, _ARRAYS, device)
     num_wide = P["p8n_nodes"].numel() // REC
     num_tris = P["p8n_tris"].numel() // 9
     num_inst = P["p8n_w2o"].numel() // 12
     if P["p8n_nodes"].numel() % REC or P["p8n_inst_entry"].numel() != num_inst:
         raise ValueError("packed node records or instance entries have the wrong length")
     check_stack(int(P["stack_need"]))
-    return ptrs + [int(P["root_entry"]), num_wide, num_tris, num_inst]
+    if "k2_words" not in P:
+        raise ValueError("K2 reads its own buffer: pack the scene with pack_scene_k2 "
+                         "(make_intersectors does)")
+    words = P["k2_words"]
+    _launch.check("k2_words", words, torch.int32, 1, device)
+    n_words = REC_WORDS * num_wide + 3 * num_tris + 4 * num_inst
+    if (P["num_wide"], P["num_tris"], P["num_inst"]) != (num_wide, num_tris, num_inst) \
+            or words.numel() != 4 * n_words:
+        raise ValueError("k2_words: not the buffer of these packed arrays (wrong length)")
+    return [
+        words.data_ptr(), n_words, int(P["root_entry"]), num_wide, num_tris, num_inst,
+        P["stack_cap"], int(P["staging"] == "shared"),
+    ]
+
+
+def _args(P, device):
+    return _scene_args(P, device) + [_launch.persistent_counters(device).data_ptr()]
 
 
 def closest_hit(P, o, d, maxt, active) -> Hit:
     """Closest hit per ray through the CUDA kernel (plain version on CPU)."""
     if o.device.type != "cuda":
         return wide8_nodes_plain(P, o, d, maxt, active, any_hit=False)
-    hit = _launch.run_closest(load()[0], _scene_args(P, o.device), o, d, maxt, active)
+    hit = _launch.run_closest(load()[0], _args(P, o.device), o, d, maxt, active)
     LAUNCHES["closest_hit"] += 1
     return hit
 
@@ -231,6 +303,6 @@ def any_hit(P, o, d, maxt, active) -> torch.Tensor:
     """Occlusion mask per ray through the CUDA kernel (plain version on CPU)."""
     if o.device.type != "cuda":
         return wide8_nodes_plain(P, o, d, maxt, active, any_hit=True).mask
-    found = _launch.run_any(load()[1], _scene_args(P, o.device), o, d, maxt, active)
+    found = _launch.run_any(load()[1], _args(P, o.device), o, d, maxt, active)
     LAUNCHES["any_hit"] += 1
     return found

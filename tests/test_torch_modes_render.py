@@ -229,9 +229,8 @@ def test_mode_with_a_kernel_takes_the_plain_version_on_a_cpu_scene(scenes, mode)
 
 def test_mode_switch_edges(scenes, monkeypatch):
     S = upload_scene(_scene_dict(scenes["cornell"]), "cpu")
-    # the 'auto' rule by triangle count holds on a card only: a CPU scene of
-    # any size gets the binary kernel's plain version, never a packed mode
-    monkeypatch.setattr(tix, "AUTO_WIDE_MIN_TRIS", 1)
+    # 'auto' gives the binary kernel at every size: on a CPU scene its plain
+    # version, never a packed mode
     assert "k1_words" in tix.make_intersectors(S, mode="auto", tri_test="mt")[0].packed
     with pytest.raises(ValueError, match="CUDA"):
         tix.make_intersectors(S, mode="kernel")
