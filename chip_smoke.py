@@ -20,20 +20,23 @@ printing one JSON line:
             at its full size (sphere, mitsuba, cornell, instanced 512x512,
             dispersive 1024x1024), on instanced 256x256 and on terrain320k
             (the scene the JAX package streams triangles for:
-            'pallas_stream'); K2 and K3 on instanced and terrain819k; K4 on
-            sphere, instanced and cornell; K5 on cornell; for each an
-            all-inactive batch and a ray count that is no multiple of the
-            block size. The kernels on the persistent schedule (K1, K1hh
-            on sphere and terrain320k; K2, K3 on instanced and terrain819k)
-            also on 1, 31 and 33 rays and on a frame with one active lane
-            (the edges of their window fetch and compaction; K3 there also
-            bit for bit against K1), every set launched twice with equal
-            outputs, and in each of their staging branches (K1: the scene in
-            shared memory, the five benchmark scenes, or in global memory,
-            terrain320k; K2, K3: in shared memory, instanced, or in global
-            memory, terrain819k),
-            each check naming its branch, with the bound and the SIMT
-            ceilings on every ray set. Every entry point's line also times a
+            'pallas_stream'); K2 and K3 on instanced and terrain819k; K4 and
+            K5 on sphere, instanced and cornell; for each an all-inactive
+            batch and a ray count that is no multiple of the block size.
+            Every kernel also on 1, 31 and 33 rays and on a frame with one
+            active lane (the edges of the window fetch and compaction; K3
+            there also bit for bit against K1), every set launched twice
+            with equal outputs, and in each of its staging branches (K1: the
+            scene in shared memory, the five benchmark scenes, or in global
+            memory, terrain320k; K2, K3: in shared memory, instanced, or in
+            global memory, terrain819k; K4, K5, on the block-local schedule:
+            in shared memory, sphere, instanced and cornell, or in global
+            memory, cornell with the branch forced); K4 and K5 also on a
+            frame whose first windows hold no active lane and through CUDA
+            graph replays, each replay's outputs against the plain version.
+            Each check names its branch; the bound on every ray set, the SIMT
+            ceilings where the plain version counts work per lane (K1, K2,
+            K3, K4). Every entry point's line also times a
             launch with every lane inactive (``empty_ms``). Each kernel's hits
             are also held against K1's on the same rays, as far as the two
             share an arithmetic (``cross_check``). Times each on the
@@ -154,12 +157,12 @@ MAX_HH_LEVEL_SHARE = 1e-4
 # entries in the ``kernels`` line (closest hit, any hit), which are also its
 # keys in the module's LAUNCHES, its plain version, its leaf form, and the
 # bytes of one node record as the kernel reads it (K1 and K3: a 64-byte
-# record of two data words and two child boxes; K4: 8 boxes and 8 entries;
-# K2: its own 224-byte record of 8 boxes and 8 ready entries), of one
-# triangle (a [v0, e1, e2] row; K1, K2 and K3 keep it as three 16-byte
-# words, and K1's Havel-Herout row [N d0 N1 d1 N2 d2] is 48 bytes too) and
-# of what it reads once per instance besides the 3x4 matrix (K1, K2, K3: the
-# rest of a 64-byte row). K1hh is K1 with its Havel-Herout triangle test: the same
+# record of two data words and two child boxes; K2 and K4: their own
+# 224-byte records of 8 boxes and 8 ready entries), of one triangle (a
+# [v0, e1, e2] row kept as three 16-byte words; K1's Havel-Herout row
+# [N d0 N1 d1 N2 d2] is 48 bytes too) and of what it reads once per instance
+# besides the 3x4 matrix (the rest of a 64-byte row: a root, an entry, or
+# K5's first triangle and count). K1hh is K1 with its Havel-Herout triangle test: the same
 # kernel body and library, two entry points of its own. K1 and K1hh read
 # entry functions of the same names as their LAUNCHES keys
 FAMILIES = {
@@ -195,20 +198,26 @@ FAMILIES = {
         replaces="polaris_tpu/ops/intersect_pallas8.py:154",
         names=("wide8_closest_hit", "wide8_any_hit"),
         keys=("closest_hit", "any_hit"), plain="wide8_plain", leaf="quot",
-        node_bytes=224, tri_bytes=36, inst_bytes=4,
+        node_bytes=224, tri_bytes=48, inst_bytes=16,
     ),
     "K5": dict(
         module="intersect_dense", mode="pallas_dense",
         replaces="polaris_tpu/ops/intersect_pallas_dense.py:40",
         names=("dense_closest_hit", "dense_any_hit"),
         keys=("closest_hit", "any_hit"), plain="dense_plain", leaf="det2",
-        node_bytes=0, tri_bytes=36, inst_bytes=8,
+        node_bytes=0, tri_bytes=48, inst_bytes=16,
     ),
 }
 K1_FAMILIES = ("K1", "K1hh")
-# the kernels on the persistent schedule of csrc/traverse_common.cuh: their plain
-# versions count work per lane, for the SIMT ceilings
+# the kernels on the persistent schedule of csrc/traverse_common.cuh, and
+# those on the block-local schedule of csrc/traverse_block.cuh
 PERSISTENT = K1_FAMILIES + ("K2", "K3")
+BLOCK_LOCAL = ("K4", "K5")
+# the kernels whose plain versions count work per lane, for the SIMT ceilings
+PER_LANE = PERSISTENT + ("K4",)
+# rays of a frame that an inactive-window check turns off from its start:
+# whole windows of either schedule (32 rays; BLOCK_THREADS)
+DEAD_WINDOWS = 2048
 # how far a kernel's hits must agree with K1's on the same rays
 #   "bits"  every field of every lane equal (K3: the TPU kernels' contract)
 #   "same"  t, u, v equal bit for bit wherever both keep the same triangle;
@@ -297,9 +306,11 @@ class Bound:
     """One kernel bound to one uploaded scene: the kernel's two wrappers and
     its plain version on the scene as that kernel reads it, packed once by
     ``make_intersectors`` (K1 and K1hh: K1's buffer of 16-byte words, in the
-    leaf form of its triangle test)."""
+    leaf form of its triangle test). ``staging`` forces a staging branch
+    (``"global"``: the buffer read from global memory though it fits in
+    shared memory)."""
 
-    def __init__(self, fam: str, S):
+    def __init__(self, fam: str, S, staging=None):
         from polaris_tpu_torch.ops.intersect import make_intersectors
 
         spec = FAMILIES[fam]
@@ -314,8 +325,10 @@ class Bound:
         torch.cuda.synchronize()
         self.pack_seconds = time.perf_counter() - t0
         self.P = closest.packed
+        if staging is not None:
+            self.P = dict(self.P, staging=staging)
         self._plain = getattr(self.module, spec["plain"])
-        # K1's staging branch: the scene in shared or in global memory
+        # the staging branch: the scene in shared or in global memory
         self.staging = self.P.get("staging")
 
     def closest(self, rays):
@@ -535,6 +548,37 @@ def bound_ms(kern: Bound, rays, any_hit: bool, stats: dict):
     return max(t_bytes, t_flops), ("bytes" if t_bytes >= t_flops else "operations"), detail
 
 
+def graph_replays(kern: "Bound", rays, any_hit: bool, where: str, times: int = 3) -> dict:
+    """One launch captured into a CUDA graph and replayed ``times``
+    times, its outputs spoiled before each replay: every replay writes
+    the plain version's result, bit for bit."""
+    from polaris_tpu_torch.ops.intersect import Hit
+
+    ref = kern.plain(rays, any_hit)
+    kern.run(rays, any_hit)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = kern.run(rays, any_hit)
+    fields_ = ("mask",) if any_hit else Hit._fields
+    for _ in range(times):
+        for f in fields_:
+            x = out if any_hit else getattr(out, f)
+            if x.dtype == torch.bool:
+                x.logical_not_()
+            else:
+                x.fill_(-7)
+        graph.replay()
+        torch.cuda.synchronize()
+        for f in fields_:
+            a = out if any_hit else getattr(out, f)
+            b = ref.mask if any_hit else getattr(ref, f)
+            if not torch.equal(a, b):
+                fail(f"{where}: a graph replay's {f} differs from the plain version")
+    return {"check": f"{where}/graph-replays", "staging": kern.staging,
+            "replays": times, "equal": True}
+
+
 class SceneRays:
     """A scene on the card with the real rays of one of its frames."""
 
@@ -549,10 +593,11 @@ class SceneRays:
         self._bound = {}
         self._k1 = {}
 
-    def bound(self, fam: str) -> Bound:
-        if fam not in self._bound:
-            self._bound[fam] = Bound(fam, self.S)
-        return self._bound[fam]
+    def bound(self, fam: str, staging=None) -> Bound:
+        key = fam if staging is None else f"{fam}/{staging}"
+        if key not in self._bound:
+            self._bound[key] = Bound(fam, self.S, staging)
+        return self._bound[key]
 
     def k1(self, key: str, any_hit: bool):
         """K1's result on one ray set (the base of the cross checks)."""
@@ -574,23 +619,28 @@ def phase_kernels(ctx):
     """``ctx``: name -> SceneRays. Returns the twelve entries of the kernels line."""
     from polaris_tpu_torch.ops.intersect import Hit
 
-    checks, crosses, entries, repeats = [], [], {}, []
+    checks, crosses, entries, repeats, replays = [], [], {}, [], []
     dead_sets = {}
 
-    def check_sets(fam, scene_name):
+    def where_of(fam, sr, staging):
+        return f"{fam}/{sr.name}{sr.frame}" + (f"/{staging}" if staging else "")
+
+    def check_sets(fam, scene_name, staging=None):
         sr = ctx[scene_name]
-        kern = sr.bound(fam)
+        kern = sr.bound(fam, staging)
         out = {}
         for key, any_hit in SETS:
-            stats = {"per_lane": True} if fam in PERSISTENT else {}
-            label = f"{fam}/{sr.name}{sr.frame}/{key}"
+            stats = {"per_lane": True} if fam in PER_LANE else {}
+            label = f"{where_of(fam, sr, staging)}/{key}"
             rec, got = compare(kern, sr.rays[key], any_hit, label, stats)
             rec["ms"] = time_ms(lambda: kern.run(sr.rays[key], any_hit), reps=20)
             rec["call_ms"] = call_ms(lambda: kern.run(sr.rays[key], any_hit), reps=20)
-            if fam in PERSISTENT:  # bound and SIMT ceilings on every set
-                b_ms, b_by, detail = bound_ms(kern, sr.rays[key], any_hit, stats)
-                rec.update(bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / rec["ms"],
-                           simt_ceilings=detail["simt_ceilings"],
+            # the bound on every set; the SIMT ceilings where the plain
+            # version counted work per lane
+            b_ms, b_by, detail = bound_ms(kern, sr.rays[key], any_hit, stats)
+            rec.update(bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / rec["ms"])
+            if "simt_ceilings" in detail:
+                rec.update(simt_ceilings=detail["simt_ceilings"],
                            stack_peak=detail["stack_peak"])
             checks.append(rec)
             if fam != "K1":
@@ -612,7 +662,7 @@ def phase_kernels(ctx):
         dead = torch.zeros_like(alive)
         for any_hit in (False, True):
             rec, _ = compare(
-                kern, (o, d, maxt, dead), any_hit, f"{fam}/{sr.name}{sr.frame}/all-inactive"
+                kern, (o, d, maxt, dead), any_hit, f"{where_of(fam, sr, None)}/all-inactive"
             )
             checks.append(rec)
         got = kern.closest((o, d, maxt, dead))
@@ -621,18 +671,21 @@ def phase_kernels(ctx):
         m = min(RAGGED, int(o.shape[0]) - 29)
         for key, any_hit in (("primary", False), ("shadow", True)):
             ragged = tuple(x[:m].contiguous() for x in sr.rays[key])
-            rec, _ = compare(kern, ragged, any_hit, f"{fam}/{sr.name}{sr.frame}/ragged-{m}-{key}")
+            rec, _ = compare(kern, ragged, any_hit, f"{where_of(fam, sr, None)}/ragged-{m}-{key}")
             checks.append(rec)
 
-    def check_schedule(fam, scene_name):
-        """The edges of the persistent schedule's chunked fetch and
-        compaction (K1, K1hh, K2, K3): 1, 31 and 33 rays and a frame's rays
-        with one active lane, through both entry points (K3 also against
-        K1, bit for bit); then every ray set launched twice, every output
-        equal bit for bit (the schedule must not leak into the result)."""
+    def check_schedule(fam, scene_name, staging=None):
+        """The edges of the schedules' window fetch and compaction: 1, 31
+        and 33 rays and a frame's rays with one active lane, through both
+        entry points (K3 also against K1, bit for bit), and for the
+        block-local schedule (K4, K5) a frame whose first DEAD_WINDOWS rays
+        are inactive; then every ray set launched twice, every output equal
+        bit for bit (the schedule must not leak into the result), and for
+        K4 and K5 replayed from a CUDA graph, each replay's outputs against
+        the plain version."""
         sr = ctx[scene_name]
-        kern = sr.bound(fam)
-        where = f"{fam}/{sr.name}{sr.frame}"
+        kern = sr.bound(fam, staging)
+        where = where_of(fam, sr, staging)
         for key, any_hit in (("primary", False), ("shadow", True)):
             rays = sr.rays[key]
             live = rays[3].nonzero()[:, 0]
@@ -640,7 +693,12 @@ def phase_kernels(ctx):
             one[live[live.numel() // 2]] = True
             cuts = [(f"{m}-rays-{key}", tuple(x[:m].contiguous() for x in rays))
                     for m in (1, 31, 33)]
-            for name, cut in cuts + [(f"one-active-{key}", (*rays[:3], one))]:
+            cuts.append((f"one-active-{key}", (*rays[:3], one)))
+            if fam in BLOCK_LOCAL:
+                late = rays[3].clone()
+                late[:DEAD_WINDOWS] = False
+                cuts.append((f"inactive-windows-{key}", (*rays[:3], late)))
+            for name, cut in cuts:
                 rec, got = compare(kern, cut, any_hit, f"{where}/{name}")
                 checks.append(rec)
                 if fam == "K3":
@@ -659,6 +717,9 @@ def phase_kernels(ctx):
                     fail(f"{where}/{key}: a second launch changed {f}")
             repeats.append({"check": f"{where}/{key}/twice", "staging": kern.staging,
                             "equal": True})
+        if fam in BLOCK_LOCAL:
+            for key, any_hit in SETS:
+                replays.append(graph_replays(kern, sr.rays[key], any_hit, f"{where}/{key}"))
 
     def empty_ms(fam, scene_name):
         """A launch with every lane inactive, on the primary rays the
@@ -690,7 +751,8 @@ def phase_kernels(ctx):
                 "mismatched_lanes": rec["mismatched_lanes"],
                 "ms": rec["ms"], "call_ms": rec["call_ms"],
                 "plain_ms": rec["plain_ms"], "bound_ms": b_ms,
-                "bound_by": b_by, "library_ms": None, "bound_detail": detail,
+                "bound_by": b_by, "share_of_bound": b_ms / rec["ms"],
+                "library_ms": None, "bound_detail": detail,
             }
         entries[spec["names"][0]]["ms_bounce1"] = results["bounce1"][0]["ms"]
         for name, ms in zip(spec["names"], empty_ms(fam, scene_name)):
@@ -724,13 +786,18 @@ def phase_kernels(ctx):
         entry(fam, "terrain819k", check_sets(fam, "terrain819k"))
         for scene_name in ("instanced", "terrain819k"):
             check_schedule(fam, scene_name)
-    # K4 and K5 at the shapes of the cornell frames that launch them
-    check_sets("K4", "sphere")
-    check_sets("K4", "instanced")
-    entry("K4", "cornell", check_sets("K4", "cornell"))
-    check_edges("K4", "cornell")
-    entry("K5", "cornell", check_sets("K5", "cornell"))
-    check_edges("K5", "cornell")
+    # K4 and K5, on the block-local schedule, at the shapes of the cornell
+    # frames that launch them; the buffer staged in shared memory on
+    # sphere, instanced and cornell, read from global memory on cornell
+    # with that branch forced; the schedule's edges in both branches
+    for fam in BLOCK_LOCAL:
+        for scene_name in ("sphere", "instanced"):
+            check_sets(fam, scene_name)
+        entry(fam, "cornell", check_sets(fam, "cornell"))
+        check_sets(fam, "cornell", "global")
+        check_edges(fam, "cornell")
+        for scene_name, staging in (("cornell", None), ("cornell", "global"), ("instanced", None)):
+            check_schedule(fam, scene_name, staging)
 
     for e in entries.values():
         own = [
@@ -742,12 +809,13 @@ def phase_kernels(ctx):
     staged = {c["staging"] for c in checks if c["kernel"] in K1_FAMILIES}
     if staged != {"shared", "global"}:
         fail(f"K1 ran in the staging branches {sorted(staged)}, expected both")
-    for fam in ("K2", "K3"):
+    for fam in ("K2", "K3") + BLOCK_LOCAL:
         staged = {c["staging"] for c in checks if c["kernel"] == fam}
         if staged != {"shared", "global"}:
             fail(f"{fam} ran in the staging branches {sorted(staged)}, expected both")
     emit(
         "kernels", checks=checks, against_k1=crosses, schedule_repeats=repeats,
+        graph_replays=replays,
         k1_layout={
             name: {k: sr.bound("K1").P[k] for k in ("staging", "smem_bytes", "stack_need")}
             for name, sr in ctx.items()
@@ -760,6 +828,15 @@ def phase_kernels(ctx):
             }
             for name, sr in ctx.items()
             for fam in ("K2", "K3")
+            if fam in sr._bound
+        },
+        k45_layout={
+            f"{fam}/{name}": {
+                k: sr.bound(fam).P[k] for k in ("staging", "stack_cap", "smem_bytes")
+                if k in sr.bound(fam).P
+            }
+            for name, sr in ctx.items()
+            for fam in BLOCK_LOCAL
             if fam in sr._bound
         },
         limits={"t_rtol": T_RTOL, "t_atol": T_ATOL, "max_mismatch_share": MAX_MISMATCH_SHARE,

@@ -14,73 +14,142 @@
 // (8,128) ray tiles, the SMEM copies of triangles and matrices, and the
 // ranges passed as data to keep Mosaic from unrolling.
 //
-// Design: one thread per ray, no stack at all. All threads of a warp read
-// the same triangle at the same time, so each 36-byte triangle is one
-// broadcast load from L1. The triangle test is scan_scaled<LEAF_DET2> of
-// traverse_common.cuh, the arithmetic of ops/intersect_dense.py::dense_plain.
-//
 // What bounds it on this card: float operations. Every ray tests every
-// triangle (59 flops each), the bytes are the rays plus at most 4096
-// triangles. The design does nothing about it: testing everything is what
-// the kernel is. On the TPU that bought a loop free of scalar-core votes; a
-// GPU thread pays nothing for its own control flow, and the measurements in
-// PERF.md show the BVH kernels ahead of this one from a few dozen triangles
-// on. It stays as the counterpart of the TPU kernel, as the second kernel of
-// the 'hybrid' mode and as an order-free reference for the others.
+// triangle (56 flops each) and moves into every instance (36); the bytes are
+// the rays, the results and at most 4096 triangles. Built with -fmad=false
+// (each multiply and add its own instruction, as the plain version rounds),
+// it can reach about half of the bound, which counts a fused multiply-add as
+// two operations.
+//
+// Design, on the block-local schedule of traverse_block.cuh (no counter,
+// live rays compacted per window):
+//   * K5's own buffer (ops/intersect_dense.py::pack_scene_k5) of 16-byte
+//     words: a 64-byte row per instance [3x4 world->object matrix, first,
+//     count, 0, 0], then a 48-byte row per triangle [v0, e1, e2] (.w
+//     unused), the rows scaled_math takes. It sits in shared memory when it
+//     fits (every scene dense mode takes: 4096 triangles are 196,608 bytes),
+//     so a triangle is three 16-byte loads that every lane of a warp shares
+//     (a broadcast), an instance four.
+//   * the geometry of K5_GROUP consecutive triangles is computed before any
+//     of them is accepted (independent work for the scheduler); acceptance
+//     stays strictly in order, against the numerators and the one
+//     denominator carried as ops/intersect_dense.py::dense_plain carries
+//     them, so every lane keeps the plain version's bits
+//   * any hit leaves at its first accepted triangle
+//
+// Tensor cores have no place here: the work is dependent scalar fp32
+// arithmetic whose compares must round as the plain version's do.
 
-#include "traverse_common.cuh"
+#include "traverse_block.cuh"
+
+#ifndef POLARIS_K5_GROUP
+#define POLARIS_K5_GROUP 2
+#endif
 
 namespace {
 
 using namespace polaris;
 
-struct Scene {
-    const int* __restrict__ ranges;  // (I,2): first triangle, count
-    Tris tris;                       // packed (T,9)
-    const float* __restrict__ w2o;   // (I,12) rows of the 3x4 matrices
-    int num_inst;
+constexpr int K5_GROUP = POLARIS_K5_GROUP;
+constexpr int INST_WORDS = 4, TRI_WORDS = 3;
+
+// K5's own buffer (see the head of this file)
+struct DenseScene {
+    const float4* __restrict__ words;
+    int num_words, num_inst, num_tris;
+    int tri_at;  // the first triangle row's word
 };
 
-template <bool ANY_HIT>
-__global__ void __launch_bounds__(THREADS) dense(Scene s, Rays rays) {
-    int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= rays.n) return;
+// the triangles [first, first + count) of one instance against the ray in
+// its space (indices clamped to `last`): the geometry of K5_GROUP triangles,
+// then their acceptance in order. True when an any-hit query is settled.
+template <bool ANY_HIT, bool STAGED>
+__device__ __forceinline__ bool scan_group(const Ray& r, const Words<STAGED>& w,
+                                           int tri_at, int first, int count,
+                                           int last, int inst, Best& best,
+                                           float& den) {
+    for (int j = 0; j < count; j += K5_GROUP) {
+        float u[K5_GROUP], v[K5_GROUP], t[K5_GROUP], det_a[K5_GROUP];
+        bool ok[K5_GROUP];
+#pragma unroll
+        for (int k = 0; k < K5_GROUP; ++k) {
+            const int at = tri_at + TRI_WORDS * min(first + j + k, last);
+            ok[k] = scaled_math<LEAF_DET2>(r, w[at], w[at + 1], w[at + 2], u[k], v[k],
+                                           t[k], det_a[k]) &
+                    (j + k < count);
+        }
+#pragma unroll
+        for (int k = 0; k < K5_GROUP; ++k) {
+            if (ANY_HIT) {
+                if (ok[k] & (t[k] < best.t * det_a[k])) {
+                    best.found = true;
+                    return true;
+                }
+            } else if (ok[k] & (t[k] * den < best.t * det_a[k])) {
+                best.found = true;
+                best.t = t[k];
+                den = det_a[k];
+                best.u = u[k];
+                best.v = v[k];
+                best.tri = min(first + j + k, last);
+                best.inst = inst;
+            }
+        }
+    }
+    return false;
+}
 
-    Best best{0.0f, 0.0f, 0.0f, 0, 0, false};
-    if (rays.active[i]) {
-        const Ray world = load_ray(rays, i);
-        best.t = rays.maxt[i];
+template <bool ANY_HIT, bool STAGED>
+__global__ void __launch_bounds__(BLOCK_RAYS) dense(DenseScene sc, Rays rays) {
+    extern __shared__ __align__(16) float4 smem[];
+    __shared__ uint64_t bar;
+    const float4* base = sc.words;
+    if constexpr (STAGED) {
+        stage_begin(smem, sc.words, sc.num_words, &bar);
+        base = smem;
+    }
+    const Words<STAGED> w{base};
+    live_windows<ANY_HIT, STAGED>(rays, &bar, [&](int ray) {
+        if (ray < 0) return;
+        const Ray world = load_ray(rays, ray);
+        Best best{rays.maxt[ray], 0.0f, 0.0f, 0, 0, false};
         float den = 1.0f;
-        bool accepted = false;
-        for (int inst = 0; inst < s.num_inst; ++inst) {
+        for (int inst = 0; inst < sc.num_inst; ++inst) {
+            const int at = INST_WORDS * inst;
             Ray r = world;
-            to_instance(r, s.w2o + 12 * (size_t)inst);
-            const int first = __ldg(s.ranges + 2 * inst);
-            const int count = __ldg(s.ranges + 2 * inst + 1);
-            if (scan_scaled<ANY_HIT, LEAF_DET2>(r, s.tris, first, count, inst,
-                                                best, den, accepted))
+            to_instance_rows(r, w[at], w[at + 1], w[at + 2]);
+            const float4 range = w[at + 3];
+            if (scan_group<ANY_HIT>(r, w, sc.tri_at, __float_as_int(range.x),
+                                    __float_as_int(range.y), sc.num_tris - 1, inst,
+                                    best, den))
                 break;
         }
         if (!ANY_HIT) to_quotients(best, den);
-    }
-    store_hit<ANY_HIT>(rays, i, best);
+        store_hit<ANY_HIT>(rays, ray, best);
+    });
+}
+
+template <bool ANY_HIT>
+int run(const void* words, int num_words, int num_inst, int num_tris, int staged,
+        const Rays& rays, void* stream) {
+    const DenseScene sc{static_cast<const float4*>(words), num_words, num_inst,
+                        num_tris, INST_WORDS * num_inst};
+    if (staged)
+        return launch_block<ANY_HIT, true>(dense<ANY_HIT, true>, sc, 16 * (size_t)num_words, rays, stream);
+    return launch_block<ANY_HIT, false>(dense<ANY_HIT, false>, sc, 0, rays, stream);
 }
 
 }  // namespace
 
-#define SCENE_ARGS                                                             \
-    const int *ranges, const float *tris, const float *w2o, int num_tris,      \
-        int num_inst
-#define SCENE                                                                  \
-    Scene {                                                                    \
-        ranges, polaris::Tris{tris, tris + 3, tris + 6, 9, num_tris}, w2o,     \
-            num_inst                                                           \
-    }
+// K5's buffer (ops/intersect_dense.py::pack_scene_k5) and whether it is
+// staged in shared memory
+#define K5_ARGS const void *words, int num_words, int num_inst, int num_tris, int staged
+#define K5_SCENE words, num_words, num_inst, num_tris, staged
 
-extern "C" int polaris_dense_closest_hit(SCENE_ARGS, POLARIS_CLOSEST_ARGS) {
-    return polaris::launch(dense<false>, SCENE, POLARIS_CLOSEST_RAYS, stream);
+extern "C" int polaris_dense_closest_hit(K5_ARGS, POLARIS_CLOSEST_ARGS) {
+    return run<false>(K5_SCENE, POLARIS_CLOSEST_RAYS, stream);
 }
 
-extern "C" int polaris_dense_any_hit(SCENE_ARGS, POLARIS_ANY_ARGS) {
-    return polaris::launch(dense<true>, SCENE, POLARIS_ANY_RAYS, stream);
+extern "C" int polaris_dense_any_hit(K5_ARGS, POLARIS_ANY_ARGS) {
+    return run<true>(K5_SCENE, POLARIS_ANY_RAYS, stream);
 }

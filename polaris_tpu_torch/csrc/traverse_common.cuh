@@ -1,15 +1,14 @@
 // Device code shared by every traversal kernel of the package (sm_90a).
 //
-// Two designs use it. K4 and K5 run ONE THREAD PER RAY in launch order,
-// with a private stack in local memory and the scene read from global memory
-// through the read-only path (__ldg); polaris::launch below starts them. K1,
-// K2 and K3 (intersect.cu, intersect_wide8_nodes.cu, intersect_nodes.cu) run
-// persistent warps that fetch only the live rays, with their packed buffer
-// staged in shared memory where it fits, whole or its head, and the stack in
-// shared memory: the persistent schedule at the end of this file, with its
-// own launcher. What differs between the kernels is the
-// node layout, the entry encoding and the child order; what they share
-// lives here:
+// Two schedules use it. K1, K2 and K3 (intersect.cu, intersect_wide8_nodes.cu,
+// intersect_nodes.cu) run persistent warps that fetch only the live rays from
+// a counter, with their packed buffer staged in shared memory where it fits
+// and the stack in shared memory: the persistent schedule at the end of this
+// file, with its own launcher. K4 and K5 (intersect_wide8.cu,
+// intersect_dense.cu) run the block-local schedule of traverse_block.cuh: a
+// static grid, each block's windows of rays compacted to their live rays,
+// no counter. What differs between the kernels is the node layout, the
+// entry encoding and the child order; what they share lives here:
 //
 //   * the ray (origin, direction, reciprocal direction with a 1e-30 floor)
 //   * the slab test: a box is skipped when tf < 0 | tn > tf | tn >= best
@@ -27,10 +26,10 @@
 //       LEAF_HH    Havel-Herout precomputed planes on 12-float rows
 //                  [N, d0, N1, d1, N2, d2], det^2-scaled like LEAF_DET2
 //                  (hh_block)
-//     all with strict updates: the first of two equal hits wins. The
-//     scaled forms take a triangle as three 16-byte rows (scaled_math), so a
-//     kernel may load them from its own layout and memory (scan_rows,
-//     leaf_rows with a row loader; tri_rows reads the separate arrays)
+//     all with strict updates: the first of two equal hits wins. Each takes
+//     a triangle as three 16-byte rows from a row loader, so a kernel may
+//     load them from its own layout and memory (leaf_rows_quot for the
+//     quotient form; scaled_math, scan_rows and leaf_rows for the others)
 //   * loading a ray and storing a hit (inactive lanes: found = 0, t = 0)
 //
 // Every sum is written in the association of the plain PyTorch versions
@@ -50,7 +49,6 @@
 
 namespace polaris {
 
-constexpr int THREADS = 128;
 constexpr float EPS = 1e-5f;
 // EPS * EPS as the TPU kernels spell it: the product in double, then rounded
 constexpr float EPS2 = (float)(1e-5 * 1e-5);
@@ -76,18 +74,6 @@ struct Rays {
     int* __restrict__ out_tri;
     int* __restrict__ out_inst;
     uint8_t* __restrict__ out_found;
-};
-
-// triangles as three base pointers and a common stride in floats: separate
-// (T,3) arrays have stride 3, one packed (T,9) array [v0, e1, e2] stride 9;
-// Havel-Herout rows (T,12) are three groups of four, [N d0], [N1 d1], [N2 d2],
-// stride 12
-struct Tris {
-    const float* __restrict__ v0;
-    const float* __restrict__ e1;
-    const float* __restrict__ e2;
-    int stride;
-    int count;
 };
 
 struct Best {
@@ -143,29 +129,20 @@ __device__ __forceinline__ void to_instance_rows(Ray& r, float4 a, float4 b,
             (c.x * qx + c.y * qy) + c.z * qz);
 }
 
-// the same from 12 floats in global memory, rows of a 3x4 matrix
-__device__ __forceinline__ void to_instance(Ray& r, const float* m) {
-    to_instance_rows(
-        r, make_float4(__ldg(m + 0), __ldg(m + 1), __ldg(m + 2), __ldg(m + 3)),
-        make_float4(__ldg(m + 4), __ldg(m + 5), __ldg(m + 6), __ldg(m + 7)),
-        make_float4(__ldg(m + 8), __ldg(m + 9), __ldg(m + 10), __ldg(m + 11)));
-}
-
-// `count` triangles from `first` against the ray, quotient form. Closest hit
-// keeps the nearest in `best`; any hit returns at the first one. Returns true
-// when an any-hit query is settled.
-template <bool ANY_HIT>
-__device__ __forceinline__ bool test_leaf_quot(const Ray& r, const Tris& tris,
-                                               int first, int count, int inst,
-                                               Best& best) {
+// `count` triangles from `first` (indices clamped to `last`) against the
+// ray, quotient form; `rows(tri, a, b, c)` loads a triangle's rows v0, e1,
+// e2 (.w unused). Closest hit keeps the nearest in `best`; any hit returns
+// at the first one. Returns true when an any-hit query is settled.
+template <bool ANY_HIT, class Rows>
+__device__ __forceinline__ bool leaf_rows_quot(const Ray& r, const Rows& rows,
+                                               int first, int count, int last,
+                                               int inst, Best& best) {
     for (int j = 0; j < count; ++j) {
-        const int tri = min(first + j, tris.count - 1);
-        const size_t at = (size_t)tri * tris.stride;
-        const float* p0 = tris.v0 + at;
-        const float* p1 = tris.e1 + at;
-        const float* p2 = tris.e2 + at;
-        float e2x = __ldg(p2 + 0), e2y = __ldg(p2 + 1), e2z = __ldg(p2 + 2);
-        float e1x = __ldg(p1 + 0), e1y = __ldg(p1 + 1), e1z = __ldg(p1 + 2);
+        const int tri = min(first + j, last);
+        float4 p0, p1, p2;
+        rows(tri, p0, p1, p2);
+        const float e1x = p1.x, e1y = p1.y, e1z = p1.z;
+        const float e2x = p2.x, e2y = p2.y, e2z = p2.z;
         // pvec = d x e2
         float pvx = r.dy * e2z - r.dz * e2y;
         float pvy = r.dz * e2x - r.dx * e2z;
@@ -173,8 +150,7 @@ __device__ __forceinline__ bool test_leaf_quot(const Ray& r, const Tris& tris,
         float det = (e1x * pvx + e1y * pvy) + e1z * pvz;
         bool ok = fabsf(det) >= EPS;
         float inv_det = 1.0f / (ok ? det : 1.0f);
-        float tvx = r.ox - __ldg(p0 + 0), tvy = r.oy - __ldg(p0 + 1),
-              tvz = r.oz - __ldg(p0 + 2);
+        float tvx = r.ox - p0.x, tvy = r.oy - p0.y, tvz = r.oz - p0.z;
         float uu = ((tvx * pvx + tvy * pvy) + tvz * pvz) * inv_det;
         ok &= (uu >= 0.0f) & (uu <= 1.0f);
         // qvec = tvec x e1
@@ -249,26 +225,6 @@ __device__ __forceinline__ bool scaled_math(const Ray& r, float4 a, float4 b,
     }
 }
 
-// the three rows of triangle `tri` of `tris` in the kernel's leaf form:
-// v0, e1, e2 (LEAF_DET2) or the Havel-Herout rows (LEAF_HH, 16-byte loads)
-template <int LEAF>
-__device__ __forceinline__ void tri_rows(const Tris& tris, int tri, float4& a,
-                                         float4& b, float4& c) {
-    const size_t at = (size_t)tri * tris.stride;
-    if constexpr (LEAF == LEAF_HH) {
-        a = __ldg(reinterpret_cast<const float4*>(tris.v0 + at));
-        b = __ldg(reinterpret_cast<const float4*>(tris.e1 + at));
-        c = __ldg(reinterpret_cast<const float4*>(tris.e2 + at));
-    } else {
-        const float* p0 = tris.v0 + at;
-        const float* p1 = tris.e1 + at;
-        const float* p2 = tris.e2 + at;
-        c = make_float4(__ldg(p2 + 0), __ldg(p2 + 1), __ldg(p2 + 2), 0.0f);
-        b = make_float4(__ldg(p1 + 0), __ldg(p1 + 1), __ldg(p1 + 2), 0.0f);
-        a = make_float4(__ldg(p0 + 0), __ldg(p0 + 1), __ldg(p0 + 2), 0.0f);
-    }
-}
-
 // `count` triangles from `first` (indices clamped to `last`) through a
 // det^2-scaled test, WITHOUT the closing divide; `rows(tri, a, b, c)` loads
 // a triangle's three rows. While it runs, best.t / best.u / best.v hold
@@ -311,19 +267,6 @@ __device__ __forceinline__ bool scan_rows(const Ray& r, const Rows& rows,
     return false;
 }
 
-// scan_rows over the triangles of `tris`
-template <bool ANY_HIT, int LEAF>
-__device__ __forceinline__ bool scan_scaled(const Ray& r, const Tris& tris,
-                                            int first, int count, int inst,
-                                            Best& best, float& den,
-                                            bool& accepted) {
-    const auto rows = [&](int tri, float4& a, float4& b, float4& c) {
-        tri_rows<LEAF>(tris, tri, a, b, c);
-    };
-    return scan_rows<ANY_HIT, LEAF>(r, rows, first, count, tris.count - 1, inst,
-                                    best, den, accepted);
-}
-
 // numerators over `den` back to quotients: one divide
 __device__ __forceinline__ void to_quotients(Best& best, float den) {
     const float inv = 1.0f / den;
@@ -349,22 +292,6 @@ __device__ __forceinline__ bool leaf_rows(const Ray& r, const Rows& rows,
     return false;
 }
 
-// One leaf visit in the kernel's leaf form over the triangles of `tris`.
-template <bool ANY_HIT, int LEAF>
-__device__ __forceinline__ bool test_leaf(const Ray& r, const Tris& tris,
-                                          int first, int count, int inst,
-                                          Best& best) {
-    if constexpr (LEAF == LEAF_QUOT) {
-        return test_leaf_quot<ANY_HIT>(r, tris, first, count, inst, best);
-    } else {
-        const auto rows = [&](int tri, float4& a, float4& b, float4& c) {
-            tri_rows<LEAF>(tris, tri, a, b, c);
-        };
-        return leaf_rows<ANY_HIT, LEAF>(r, rows, first, count, tris.count - 1,
-                                        inst, best);
-    }
-}
-
 template <bool ANY_HIT>
 __device__ __forceinline__ void store_hit(const Rays& rays, int i,
                                           const Best& best) {
@@ -376,18 +303,6 @@ __device__ __forceinline__ void store_hit(const Rays& rays, int i,
         rays.out_tri[i] = best.tri;
         rays.out_inst[i] = best.inst;
     }
-}
-
-// Launch `kernel` (one thread per ray) on `stream`; returns cudaGetLastError().
-// The C entry points of every traversal library end here: they take raw
-// device pointers and a stream, no PyTorch headers.
-template <typename SceneT>
-inline int launch(void (*kernel)(SceneT, Rays), const SceneT& s,
-                  const Rays& rays, void* stream) {
-    if (rays.n <= 0) return (int)cudaSuccess;
-    int blocks = (rays.n + THREADS - 1) / THREADS;
-    kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(s, rays);
-    return (int)cudaGetLastError();
 }
 
 // ===========================================================================

@@ -120,7 +120,7 @@ def mt_block(T: TriArrays, tri, valid, o, d, best_t, *, closest: bool):
     order — what sequential strict-``<`` updates would keep. Without
     ``closest`` (any hit) ``t, u, v`` are ``None`` and ``tri`` is the first
     accepted triangle in block order, where a sequential test would stop.
-    The device helper ``test_leaf_quot`` of csrc/traverse_common.cuh repeats
+    The device helper ``leaf_rows_quot`` of csrc/traverse_common.cuh repeats
     it in the same association.
     """
     v0 = T.v0[tri]
@@ -627,17 +627,27 @@ _GEOMETRY = (
 # time: place it again, on other kinds of scene too, once it is not
 
 MODES = (
-    "auto", "kernel", "bvh", "pallas_stream", "pallas_nodes", "pallas8",
-    "pallas8_nodes", "pallas_dense", "hybrid",
+    "auto", "kernel", "pallas", "bvh", "pallas_stream", "pallas_nodes", "pallas8",
+    "pallas8_nodes", "pallas_dense", "hybrid", "packet", "brute",
 )
 
+# the JAX package's XLA modes, which the port has no plain version of yet,
+# and the port's mode that computes the same hits
+SUBSTITUTES = {
+    "packet": "'auto' (the binary kernel K1; its plain version on a CPU scene)",
+    "brute": "'pallas_dense' (every triangle of every instance)",
+}
+
+# the modes that run the binary kernel K1, the only kernel with two triangle
+# tests ('auto' resolves to one of them)
+K1_MODES = ("kernel", "pallas_stream")
 
 TRI_TESTS = ("mt", "hh")
 
 
 def resolve_tri_test(tri_test: Optional[str]) -> str:
     """``tri_test`` or, when it is ``None``, the environment variable
-    ``POLARIS_TRI_TEST`` (default ``mt``), read when the scene is packed as
+    ``POLARIS_TRI_TEST`` (default ``mt``), read when K1's scene is packed as
     the JAX package reads it."""
     if tri_test is None:
         tri_test = os.environ.get("POLARIS_TRI_TEST", "mt")
@@ -651,16 +661,19 @@ def make_intersectors(S, mode: str = "auto", tri_test: Optional[str] = None):
 
     ``tri_test`` picks the binary kernel's triangle test: ``"mt"`` (det²-scaled
     Möller–Trumbore over ``tri_v0/e1/e2``) or ``"hh"`` (Havel–Herout planes,
-    packed here into 12-float rows); ``None`` reads ``POLARIS_TRI_TEST``.
-    ``"hh"`` exists for the modes that run the binary kernel ('kernel',
-    'pallas_stream', and 'auto' where it resolves to it) and raises with any
-    other.
+    packed here into 12-float rows). It applies where K1 runs: the modes
+    'kernel', 'pallas' and 'pallas_stream', 'auto' (which resolves to K1 or
+    its plain version) and the primary rays of 'hybrid'. ``None`` reads
+    ``POLARIS_TRI_TEST`` for those modes and, as the JAX package, ignores it
+    for every other; an explicit ``"hh"`` with a mode that does not run K1
+    raises.
 
     mode (the names of the JAX package's ``make_intersectors`` where there
     is a counterpart):
       'kernel'        the binary CUDA traversal kernel K1 over its own
-                      packed copy of the scene (``intersect_cuda``; the JAX
-                      package's 'pallas'). CUDA tensors only.
+                      packed copy of the scene (``intersect_cuda``). CUDA
+                      tensors only.
+      'pallas'        the JAX package's name of 'kernel'; the same
       'pallas_stream' the same kernel: on a GPU every scene array already
                       lies in global memory behind L2, so the kernel that
                       leaves the triangles in device memory is 'kernel'
@@ -671,8 +684,8 @@ def make_intersectors(S, mode: str = "auto", tri_test: Optional[str] = None):
                       big-scene kernel (``intersect_wide8_nodes``)
       'pallas_dense'  no BVH, every triangle, at most 4096 of them
                       (``intersect_dense``)
-      'hybrid'        'kernel' for primary rays; 'pallas_dense' for bounce
-                      rays (``closest.closest_bounce``) and shadow rays
+      'hybrid'        'pallas_stream' for primary rays; 'pallas_dense' for
+                      bounce rays (``closest.closest_bounce``) and shadow rays
       'bvh'           the plain PyTorch binary traversal above with the
                       quotient-form triangle test, as the JAX package's
                       'bvh' (any device)
@@ -680,6 +693,8 @@ def make_intersectors(S, mode: str = "auto", tri_test: Optional[str] = None):
                       K2 on every scene the grid times); on the CPU the
                       binary kernel's wrappers, which run its plain version
                       there
+      'packet', 'brute'  the JAX package's XLA traversals: not ported, they
+                      raise and name the port's mode to use (``SUBSTITUTES``)
 
     The scene is packed once here, on the host, and the packed arrays are
     uploaded to the scene's device. A mode with a CUDA kernel runs that
@@ -690,18 +705,28 @@ def make_intersectors(S, mode: str = "auto", tri_test: Optional[str] = None):
     a ``Hit``, ``any_hit`` the occlusion mask.
     """
     device = S["bvh_ldata"].device
-    tri_test = resolve_tri_test(tri_test)
-    if mode == "auto":
-        mode = "kernel" if device.type == "cuda" else "pallas_stream"
     if mode not in MODES:
         raise ValueError(f"unknown traversal mode {mode!r} ({' | '.join(MODES)})")
-    if tri_test == "hh" and mode not in ("kernel", "pallas_stream"):
+    if mode in SUBSTITUTES:
         raise ValueError(
-            f"tri_test='hh' is a test of the binary kernel; mode {mode!r} "
-            "has none (use 'kernel', 'pallas_stream' or a scene 'auto' gives it)"
+            f"mode {mode!r} is an XLA traversal of the JAX package that the port "
+            f"does not have; use {SUBSTITUTES[mode]}"
         )
+    if mode == "auto":
+        mode = "kernel" if device.type == "cuda" else "pallas_stream"
+    elif mode == "pallas":
+        mode = "kernel"
+    if mode in K1_MODES or mode == "hybrid":
+        tri_test = resolve_tri_test(tri_test)
+    elif tri_test is not None:
+        resolve_tri_test(tri_test)  # an unknown name raises as such
+        if tri_test == "hh":
+            raise ValueError(
+                f"tri_test='hh' is a test of the binary kernel; mode {mode!r} "
+                "has none (use 'kernel', 'pallas_stream', 'hybrid' or 'auto')"
+            )
 
-    if mode in ("kernel", "pallas_stream"):
+    if mode in K1_MODES:
         from . import intersect_cuda
 
         if mode == "kernel" and device.type != "cuda":
@@ -722,31 +747,27 @@ def make_intersectors(S, mode: str = "auto", tri_test: Optional[str] = None):
         return closest, any_hit
 
     if mode == "hybrid":
-        primary, _ = make_intersectors(S, "pallas_stream")
-        closest_dense, any_hit_dense = make_intersectors(S, "pallas_dense")
-
-        def closest(S, o, d, maxt, active):
-            return primary(S, o, d, maxt, active)
-
-        closest.closest_bounce = closest_dense
+        # K1 (with its packed scene and triangle test) for primary rays, the
+        # dense kernel for bounce and shadow rays
+        closest, _ = make_intersectors(S, "pallas_stream", tri_test)
+        closest.closest_bounce, any_hit_dense = make_intersectors(S, "pallas_dense")
         return closest, any_hit_dense
 
     import importlib
 
     from ._launch import upload_packed
 
-    # the module, its packer (equal to the JAX packer's arrays) and, for the
-    # kernels that read a buffer of their own, the packer of that buffer
+    # the module, its packer (equal to the JAX packer's arrays) and the
+    # packer of the buffer the kernel reads
     module_name, packer, own = {
         "pallas_nodes": ("intersect_nodes", "pack_scene_nodes", "pack_scene_k3"),
-        "pallas8": ("intersect_wide8", "pack_scene8", None),
+        "pallas8": ("intersect_wide8", "pack_scene8", "pack_scene_k4"),
         "pallas8_nodes": ("intersect_wide8_nodes", "pack_scene8_nodes", "pack_scene_k2"),
-        "pallas_dense": ("intersect_dense", "pack_scene_dense", None),
+        "pallas_dense": ("intersect_dense", "pack_scene_dense", "pack_scene_k5"),
     }[mode]
     module = importlib.import_module(f"{__package__}.{module_name}")
     host = getattr(module, packer)(host_geometry(S))
-    if own is not None:
-        host.update(getattr(module, own)(host))
+    host.update(getattr(module, own)(host))
     P = upload_packed(host, device)
 
     def closest(S, o, d, maxt, active):

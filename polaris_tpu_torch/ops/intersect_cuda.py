@@ -77,6 +77,9 @@ THREADS = 512
 # the shared memory one block may use on an H100 (227 KB, after opting in),
 # less 1 KB kept for the kernel's static shared memory
 SMEM_BUDGET = 232_448 - 1_024
+# threads per block, and rays per window, of K4's and K5's block-local
+# schedule (BLOCK_RAYS in csrc/traverse_block.cuh)
+BLOCK_THREADS = 256
 
 LEAVES = {"mt": "det2", "hh": "hh"}
 
@@ -138,6 +141,16 @@ def staging_words(num_words: int, stack_cap: int):
     return ("shared" if need <= SMEM_BUDGET else "global"), need
 
 
+def block_staging(num_words: int, stack_cap: int):
+    """The same rule for K4 and K5 (the block-local schedule of
+    ``csrc/traverse_block.cuh``): a buffer of ``num_words`` words beside
+    ``BLOCK_THREADS`` stacks of ``stack_cap`` entries and the schedule's two
+    windows of ray indices (its static shared memory)."""
+    need = 16 * num_words + 4 * stack_cap * BLOCK_THREADS
+    fits = need + 8 * BLOCK_THREADS <= SMEM_BUDGET
+    return ("shared" if fits else "global"), need
+
+
 def det2_rows(v0, e1, e2) -> np.ndarray:
     """48-byte triangle rows ``[v0, 0, e1, 0, e2, 0]`` (f32 [T,12]) of the
     det²-scaled leaf form, read as three 16-byte words."""
@@ -148,11 +161,13 @@ def det2_rows(v0, e1, e2) -> np.ndarray:
 
 def instance_rows(w2o12, head) -> np.ndarray:
     """64-byte instance rows (int32 [I,16]): the 12 floats of the 3x4
-    world->object matrix as bits, then the int ``head`` (a BLAS root node, or
-    K2's instance entry), ``0, 0, 0``."""
+    world->object matrix as bits, then the ints of ``head`` ([I] or [I,k]: a
+    BLAS root node, K2's or K4's instance entry, K5's first triangle and
+    count), zeros after them."""
     rows = np.zeros((w2o12.shape[0], INST_WORDS), np.int32)
     rows.view(np.float32)[:, :12] = np.asarray(w2o12, np.float32)
-    rows[:, 12] = np.asarray(head).astype(np.int32)
+    head = np.asarray(head).astype(np.int32).reshape(w2o12.shape[0], -1)
+    rows[:, 12:12 + head.shape[1]] = head
     return rows
 
 

@@ -19,10 +19,20 @@ every leaf, so an acceptance compare rounds differently here: on a near-tie
 this kernel may keep another triangle than they do; on the same triangle
 ``t, u, v`` are the same bits.
 
+``pack_scene_k5`` builds, beside those arrays, the buffer the kernel reads
+(``csrc/intersect_dense.cu``), one buffer of 16-byte words: a 64-byte row per
+instance ``[3x4 world->object matrix, first, count, 0, 0]``, then a 48-byte
+row per triangle ``[v0, 0, e1, 0, e2, 0]``, with the staging branch
+(``intersect_cuda.block_staging``: the whole buffer in shared memory when it
+fits, which every scene of at most ``DENSE_MAX_TRIS`` triangles does unless
+it holds thousands of instances, else read through L1 and L2). The kernel
+runs the block-local schedule of ``csrc/traverse_block.cuh``.
+
 ``dense_plain`` is the PLAIN VERSION of the kernel: the same loops with all
-rays advanced together and the triangles taken in chunks. On CUDA tensors
-the wrappers launch the kernel or raise; they take the plain version only for
-CPU tensors. ``LAUNCHES`` counts kernel launches.
+rays advanced together and the triangles taken in chunks; it reads the
+JAX-equal arrays. On CUDA tensors the wrappers launch the kernel on
+``P["k5_words"]`` or raise; they take the plain version only for CPU tensors.
+``LAUNCHES`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -33,6 +43,7 @@ import numpy as np
 import torch
 
 from . import _launch
+from .intersect_cuda import block_staging, det2_rows, instance_rows
 from .intersect import (
     Hit,
     _mt_tests_det2,
@@ -108,6 +119,24 @@ def pack_scene_dense(scene) -> Dict[str, np.ndarray]:
         "pk_ranges": np.asarray(ranges, np.int32).reshape(-1),
         "pk_tris": tris,
         "pk_w2o": w2o,
+    }
+
+
+def pack_scene_k5(pd) -> Dict:
+    """K5's own buffer from the host arrays of ``pack_scene_dense`` (see the
+    module docstring): ``k5_words`` (int32, 16-byte words), the counts the
+    kernel takes and the staging branch."""
+    ranges = np.asarray(pd["pk_ranges"], np.int32).reshape(-1, 2)
+    tris = np.asarray(pd["pk_tris"], np.float32).reshape(-1, 9)
+    w2o = np.asarray(pd["pk_w2o"], np.float32).reshape(-1, 12)
+    words = np.concatenate([
+        instance_rows(w2o, ranges).ravel(),
+        det2_rows(tris[:, 0:3], tris[:, 3:6], tris[:, 6:9]).view(np.int32).ravel(),
+    ])
+    where, smem = block_staging(words.size // 4, 0)
+    return {
+        "k5_words": words, "num_inst": w2o.shape[0], "num_tris": tris.shape[0],
+        "staging": where, "smem_bytes": smem,
     }
 
 
@@ -201,20 +230,30 @@ def load():
     global _LIB
     if _LIB is None:
         _LIB = _launch.bind(
-            SOURCE, "polaris_dense_closest_hit", "polaris_dense_any_hit", "pppii"
+            SOURCE, "polaris_dense_closest_hit", "polaris_dense_any_hit", "piiii"
         )
     return _LIB
 
 
 def _scene_args(P, device):
-    ptrs = _launch.packed_pointers(P, _POINTERS, device)
+    """The kernel's scene arguments: its own buffer, once the packed arrays
+    and the buffer built from them are checked to agree."""
+    _launch.packed_pointers(P, _POINTERS, device)
     num_tris = P["pk_tris"].numel() // 9
     num_inst = P["pk_w2o"].numel() // 12
     if num_tris > DENSE_MAX_TRIS:
         raise ValueError(f"dense intersection takes at most {DENSE_MAX_TRIS} triangles")
     if P["pk_ranges"].numel() != 2 * num_inst:
         raise ValueError("pk_ranges and pk_w2o disagree on the instance count")
-    return ptrs + [num_tris, num_inst]
+    if "k5_words" not in P:
+        raise ValueError("K5 reads its own buffer: pack the scene with pack_scene_k5 "
+                         "(make_intersectors does)")
+    words = P["k5_words"]
+    _launch.check("k5_words", words, torch.int32, 1, device)
+    n_words = 4 * num_inst + 3 * num_tris
+    if (P["num_inst"], P["num_tris"]) != (num_inst, num_tris) or words.numel() != 4 * n_words:
+        raise ValueError("k5_words: not the buffer of these packed arrays (wrong length)")
+    return [words.data_ptr(), n_words, num_inst, num_tris, int(P["staging"] == "shared")]
 
 
 def closest_hit(P, o, d, maxt, active) -> Hit:

@@ -26,12 +26,28 @@ needs more than ``STACK_SIZE`` entries (the TPU kernel clips silently).
 ``max_leaf``, the static unroll bound of the TPU kernel's leaf loop, has no
 counterpart: the loop runs to the entry's own count.
 
+``pack_scene_k4`` builds, beside those arrays, the buffer the kernel reads
+(``csrc/intersect_wide8.cu``), one buffer of 16-byte words:
+
+  * a 224-byte record per wide node, in ``pk_boxes``' order: its 48 box
+    floats as twelve words (children ``2p`` and ``2p+1`` in words
+    ``3p .. 3p+2``, as K2's records), then its 8 entries as two words, in
+    K4's own 28/22-bit encoding and slot order
+  * 64-byte instance rows ``[3x4 matrix, the instance's entry, 0, 0, 0]``
+  * 48-byte triangle rows ``[v0, 0, e1, 0, e2, 0]``
+
+with the stack each thread gets (``stack_need``, at least 1) and the staging
+branch (``intersect_cuda.block_staging``: the whole buffer in shared memory
+when it fits beside the stacks, else read through L1 and L2). The kernel
+runs the block-local schedule of ``csrc/traverse_block.cuh``.
+
 ``traverse_wide`` is the PLAIN VERSION of both 8-wide kernels (this one and
 ``ops/intersect_wide8_nodes.py``): per-lane stacks advanced in lock step,
 parametrised by a ``WideLayout`` that fetches a node's boxes and entries and
-decodes an entry, and by the leaf test (``leaf=``). On CUDA tensors the wrappers launch the kernel or raise;
-they take the plain version only for CPU tensors. ``LAUNCHES`` counts kernel
-launches.
+decodes an entry, and by the leaf test (``leaf=``); for K4 it reads the
+JAX-equal arrays. On CUDA tensors the wrappers launch the kernel on
+``P["k4_words"]`` or raise; they take the plain version only for CPU tensors.
+``LAUNCHES`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -43,6 +59,7 @@ import torch
 
 from . import _launch
 from . import vec as V
+from .intersect_cuda import block_staging, det2_rows, instance_rows
 from .intersect import (
     Hit,
     TriArrays,
@@ -58,6 +75,8 @@ from .intersect import (
 SOURCE = "intersect_wide8.cu"
 STACK_SIZE = 96
 WIDTH = 8
+# 16-byte words of one of K4's own node records: 12 of boxes, 2 of entries
+REC_WORDS = 14
 
 T_EMPTY = 0
 T_WIDE = 1
@@ -250,6 +269,29 @@ def pack_scene8(scene) -> Dict:
     }
 
 
+def pack_scene_k4(p8) -> Dict:
+    """K4's own buffer from the host arrays of ``pack_scene8`` (see the
+    module docstring): ``k4_words`` (int32, 16-byte words), the counts the
+    kernel takes, the stack it gives each thread and the staging branch."""
+    boxes = np.asarray(p8["pk_boxes"], np.float32).reshape(-1, WIDTH * 6)
+    entries = np.asarray(p8["pk_entry"], np.int32).reshape(-1, WIDTH)
+    tris = np.asarray(p8["pk_tris"], np.float32).reshape(-1, 9)
+    w2o = np.asarray(p8["pk_w2o"], np.float32).reshape(-1, 12)
+    records = np.concatenate([boxes.view(np.int32), entries], axis=1)
+    need = int(p8["stack_need"])
+    check_stack(need)
+    cap = max(1, need)
+    words = np.concatenate([
+        records.ravel(), instance_rows(w2o, p8["pk_inst_entry"]).ravel(),
+        det2_rows(tris[:, 0:3], tris[:, 3:6], tris[:, 6:9]).view(np.int32).ravel(),
+    ])
+    where, smem = block_staging(words.size // 4, cap)
+    return {
+        "k4_words": words, "num_wide": boxes.shape[0], "num_inst": w2o.shape[0],
+        "num_tris": tris.shape[0], "stack_cap": cap, "staging": where, "smem_bytes": smem,
+    }
+
+
 # ------------------------------------------------------ plain traversal
 
 
@@ -275,8 +317,8 @@ def traverse_wide(
     """8-wide two-level traversal for all lanes, advanced in lock step: each
     trip every live lane handles the entry it holds (enter an instance, test
     a leaf, or visit a wide node) exactly as one thread of the CUDA kernels
-    does (csrc/traverse_wide.cuh). ``leaf`` names the leaf test
-    (``ops/intersect.py::LEAF_TESTS``).
+    does (``csrc/intersect_wide8.cu``, ``csrc/traverse_wide.cuh``). ``leaf``
+    names the leaf test (``ops/intersect.py::LEAF_TESTS``).
 
     ``stats`` receives the keys of ``traverse_binary``'s: ``inner`` counts
     wide-node visits and ``slabs`` the slab tests of their non-empty slots.
@@ -473,21 +515,34 @@ def load():
     global _LIB
     if _LIB is None:
         _LIB = _launch.bind(
-            SOURCE, "polaris_wide8_closest_hit", "polaris_wide8_any_hit",
-            "ppppp" + "iiii",
+            SOURCE, "polaris_wide8_closest_hit", "polaris_wide8_any_hit", "p" + "i" * 7,
         )
     return _LIB
 
 
 def _scene_args(P, device):
-    ptrs = _launch.packed_pointers(P, _POINTERS, device)
+    """The kernel's scene arguments: its own buffer, once the packed arrays
+    and the buffer built from them are checked to agree."""
+    _launch.packed_pointers(P, _POINTERS, device)
     num_wide = P["pk_entry"].numel() // WIDTH
     num_tris = P["pk_tris"].numel() // 9
     num_inst = P["pk_w2o"].numel() // 12
     if P["pk_boxes"].numel() != num_wide * WIDTH * 6 or P["pk_inst_entry"].numel() != num_inst:
         raise ValueError("packed boxes, entries or instance entries disagree in length")
     check_stack(int(P["stack_need"]))
-    return ptrs + [int(P["root_entry"]), num_wide, num_tris, num_inst]
+    if "k4_words" not in P:
+        raise ValueError("K4 reads its own buffer: pack the scene with pack_scene_k4 "
+                         "(make_intersectors does)")
+    words = P["k4_words"]
+    _launch.check("k4_words", words, torch.int32, 1, device)
+    n_words = REC_WORDS * num_wide + 4 * num_inst + 3 * num_tris
+    if (P["num_wide"], P["num_inst"], P["num_tris"]) != (num_wide, num_inst, num_tris) \
+            or words.numel() != 4 * n_words:
+        raise ValueError("k4_words: not the buffer of these packed arrays (wrong length)")
+    return [
+        words.data_ptr(), n_words, num_wide, num_inst, num_tris, int(P["root_entry"]),
+        P["stack_cap"], int(P["staging"] == "shared"),
+    ]
 
 
 def closest_hit(P, o, d, maxt, active) -> Hit:

@@ -1,16 +1,19 @@
-"""The persistent traversal kernels (K1, and K2 and K3 of the big-scene path)
-timed at the shapes the benchmark and big-scene frames give them (one GPU).
+"""The traversal kernels timed at the shapes the benchmark, big-scene and
+cornell frames give them (one GPU).
 
     python3 scripts/torch_k1_timing.py [--scenes sphere,dispersive]
                                        [--kernels K1,K1hh] [--check]
                                        [--ptxas] [--tree DIR] [--out FILE.json]
     python3 scripts/torch_k1_timing.py --kernels K2,K3 \
                                        --scenes instanced,terrain819k
+    python3 scripts/torch_k1_timing.py --kernels K4,K5 --scenes cornell256 \
+                                       [--staging global] [--define NAME=VALUE]
 
 For each scene (default: the five benchmark configurations at their frame
 sizes, sphere, cornell, mitsuba, instanced 512x512 and dispersive 1024x1024,
 and terrain320k 512x512; also terrain20k, terrain80k and terrain819k, the
-big-scene frame's scene, at 512x512) it makes the real rays of one frame as
+big-scene frame's scene, at 512x512; cornell256 and instanced256, the frames
+of chip_smoke.py's cornell and instanced checks) it makes the real rays of one frame as
 ``chip_smoke.py`` does (primary rays of sample 0, the bounce-1 and NEE shadow
 rays that ``shade`` emits from their hits) and times each kernel of
 ``--kernels`` (any family of ``chip_smoke.FAMILIES``: ``K1`` det^2-scaled
@@ -35,7 +38,10 @@ reports per entry point (registers, stack frame, spills, shared memory).
 this script, so two trees are timed in one call on one card;
 ``--scene-cache DIR`` keeps each compiled scene there as ``.npz`` and reads
 it back in the next run (the 819k-triangle terrain takes about 25 s to
-compile). Needs a CUDA
+compile). ``--staging global`` runs every kernel that has a staging branch
+with its buffer in global memory; ``--define NAME=VALUE`` (repeatable)
+builds the kernels with ``-DNAME=VALUE``, for the tuning constants of
+``csrc/traverse_block.cuh`` and ``csrc/intersect_dense.cu``. Needs a CUDA
 device and nvcc; exits non-zero without a CUDA device. Prints one JSON
 object with the card's name and power limit.
 """
@@ -62,6 +68,8 @@ SCENES = {
 # and the big-scene frame's, by the grid of make_terrain_scene
 TERRAINS = {"terrain20k": 100, "terrain80k": 200, "terrain320k": 400, "terrain819k": 640}
 FRAMES = {**SCENES, "terrain20k": 512, "terrain80k": 512, "terrain819k": 512}
+# a scene at another frame size than its configuration's: name -> (scene, frame)
+AT_FRAME = {"cornell256": ("cornell", 256), "instanced256": ("instanced", 256)}
 # what a row reports of the packed scene, where the kernel has it
 LAYOUT_KEYS = ("staging", "stack_cap", "smem_bytes")
 SETS = (("primary", False), ("bounce1", False), ("shadow", True), ("inactive", False))
@@ -137,6 +145,8 @@ def main() -> int:
     ap.add_argument("--tree", default=REPO,
                     help="the checkout whose package and chip_smoke.py are timed")
     ap.add_argument("--scene-cache", default=None)
+    ap.add_argument("--staging", choices=("global",), default=None)
+    ap.add_argument("--define", action="append", default=[])
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -145,22 +155,31 @@ def main() -> int:
     root = os.path.abspath(args.tree)
     sys.path.insert(0, root)
     import chip_smoke
+    from polaris_tpu_torch.ops import _launch
     from polaris_tpu_torch.ops import intersect as tix
 
+    _launch.EXTRA_FLAGS = tuple(_launch.EXTRA_FLAGS) + tuple(f"-D{x}" for x in args.define)
     kernels = args.kernels.split(",")
     card = chip_smoke.nvidia_smi_line()
-    report = {"card": card, "torch": torch.__version__, "root": root, "sets": []}
+    report = {"card": card, "torch": torch.__version__, "root": root,
+              "defines": args.define, "staging": args.staging, "sets": []}
     if args.ptxas:
         report["ptxas"] = ptxas_report(kernels)
     ceilings = getattr(tix, "simt_ceilings", None)
     t_start = time.perf_counter()
     with torch.no_grad():
         for name in args.scenes.split(","):
-            sr = chip_smoke.SceneRays(name, load_scene(name, args.scene_cache), FRAMES[name])
+            scene_name, frame = AT_FRAME.get(name, (name, FRAMES.get(name)))
+            sr = chip_smoke.SceneRays(
+                scene_name, load_scene(scene_name, args.scene_cache), frame
+            )
             o, d, maxt, alive = sr.rays["primary"]
             sr.rays["inactive"] = (o, d, maxt, torch.zeros_like(alive))
             for fam in kernels:
                 kern = sr.bound(fam)
+                if args.staging and "staging" in kern.P:
+                    kern.P = dict(kern.P, staging=args.staging)
+                    kern.staging = args.staging
                 for key, any_hit in SETS:
                     rays = sr.rays[key]
                     row = {

@@ -240,9 +240,11 @@ def test_mode_switch_edges(scenes, monkeypatch):
     closest, any_hit = tix.make_intersectors(S, mode="pallas_stream", tri_test="mt")
     assert closest.packed["leaf"] == "det2" and "k1_words" in closest.packed
     # its second triangle test: Havel-Herout rows packed once, for K1 only
-    closest, _ = tix.make_intersectors(S, mode="pallas_stream", tri_test="hh")
-    assert closest.tris_hh.shape == (12 * S["tri_v0"].shape[0],)
-    for mode in ("bvh", "hybrid", "pallas8", "pallas8_nodes", "pallas_nodes", "pallas_dense"):
+    # (and K1 runs the primary rays of 'hybrid')
+    for mode in ("pallas_stream", "hybrid"):
+        closest, _ = tix.make_intersectors(S, mode=mode, tri_test="hh")
+        assert closest.tris_hh.shape == (12 * S["tri_v0"].shape[0],)
+    for mode in ("bvh", "pallas8", "pallas8_nodes", "pallas_nodes", "pallas_dense"):
         with pytest.raises(ValueError, match="binary kernel"):
             tix.make_intersectors(S, mode=mode, tri_test="hh")
     assert set(tix.MODES) >= set(RENDER_MODES) | {"auto", "kernel", "bvh"}
@@ -275,11 +277,19 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(scenes):
     with pytest.raises(ValueError, match="wrong length"):
         intersect_nodes._scene_args({**Pn, "pn_roots": Pn["pn_roots"][:-1]}, dev)
     Pd = dict(tix.make_intersectors(S, "pallas_dense")[0].packed)
+    assert len(intersect_dense._scene_args(Pd, dev)) == 5
     with pytest.raises(ValueError, match="instance count"):
         intersect_dense._scene_args({**Pd, "pk_ranges": Pd["pk_ranges"][:-2]}, dev)
+    with pytest.raises(ValueError, match="k5_words.*wrong length"):
+        intersect_dense._scene_args({**Pd, "k5_words": Pd["k5_words"][:-4]}, dev)
     P8 = dict(tix.make_intersectors(S, "pallas8")[0].packed)
+    assert len(intersect_wide8._scene_args(P8, dev)) == 8
     with pytest.raises(ValueError, match="disagree in length"):
         intersect_wide8._scene_args({**P8, "pk_boxes": P8["pk_boxes"][:-48]}, dev)
+    with pytest.raises(ValueError, match="k4_words.*wrong length"):
+        intersect_wide8._scene_args({**P8, "k4_words": P8["k4_words"][:-4]}, dev)
+    with pytest.raises(ValueError, match="traversal stack"):
+        intersect_wide8._scene_args({**P8, "stack_need": 97}, dev)
 
 
 def test_a_shared_header_edit_changes_every_build_key(tmp_path, monkeypatch):
@@ -294,6 +304,10 @@ def test_a_shared_header_edit_changes_every_build_key(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "CSRC_DIR", str(csrc))
     assert _build._source_closure("intersect_wide8_nodes.cu") == [
         "intersect_wide8_nodes.cu", "traverse_common.cuh", "traverse_wide.cuh",
+    ]
+    assert _build._source_closure("intersect_wide8.cu") == [
+        "intersect_wide8.cu", "traverse_block.cuh", "traverse_common.cuh",
+        "traverse_wide.cuh",
     ]
     sources = [
         "intersect.cu", "intersect_nodes.cu", "intersect_wide8.cu",
@@ -310,4 +324,11 @@ def test_a_shared_header_edit_changes_every_build_key(tmp_path, monkeypatch):
     last = {s: _build._plan(s, ("-fmad=false",))[0] for s in sources}
     changed = {s for s in sources if last[s] != after[s]}
     assert changed == {"intersect_wide8.cu", "intersect_wide8_nodes.cu"}
+    # the block-local schedule: K4's and K5's libraries alone
+    with open(csrc / "traverse_block.cuh", "a") as f:
+        f.write("// edited\n")
+    block = {s: _build._plan(s, ("-fmad=false",))[0] for s in sources}
+    assert {s for s in sources if block[s] != last[s]} == {
+        "intersect_wide8.cu", "intersect_dense.cu",
+    }
     assert _build._plan("intersect.cu", ())[0] != last["intersect.cu"]  # flags count

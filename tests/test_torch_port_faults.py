@@ -1,0 +1,164 @@
+"""Three faults of the port against the JAX package, repaired, on the CPU.
+
+1. ``POLARIS_TRI_TEST`` reaches only K1: in the JAX package the variable is
+   read by K1's packer alone (``polaris_tpu/ops/intersect_pallas.py``), so
+   every mode builds with it set to ``hh`` and only the modes that run K1
+   (``auto`` and ``pallas_stream`` here, the primary rays of ``hybrid``)
+   take the Havel-Herout test. An explicit ``tri_test="hh"`` with a mode
+   that has no such test still raises.
+2. The JAX package's mode names: ``pallas`` is the port's ``kernel``;
+   ``packet`` and ``brute`` (XLA traversals the port has no plain version
+   of) raise and name the port's mode to use.
+3. Every file the port copies verbatim from the JAX package is byte for
+   byte the original: ``asset/**``, ``native/__init__.py``, the native
+   sources, ``types.py``, ``utils/log.py``, ``render/options.py``.
+"""
+
+import os
+import re
+from dataclasses import fields
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+from polaris_tpu_torch.asset.compiler.compiler import compile_scene  # noqa: E402
+from polaris_tpu_torch.asset.wavefront import read_scene  # noqa: E402
+from polaris_tpu_torch.ops import intersect as tix  # noqa: E402
+from polaris_tpu_torch.scene import upload_scene  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+JAX_PKG = os.path.join(REPO, "polaris_tpu")
+PORT_PKG = os.path.join(REPO, "polaris_tpu_torch")
+FLT_MAX = float(np.finfo(np.float32).max)
+
+# every mode that builds on a CPU scene ('kernel' and its alias 'pallas'
+# need a card; 'packet' and 'brute' are not ported)
+CPU_MODES = (
+    "auto", "pallas_stream", "hybrid", "bvh", "pallas_nodes", "pallas8",
+    "pallas8_nodes", "pallas_dense",
+)
+# of those, the modes whose closest hit runs K1 (its plain version here)
+RUNS_K1 = ("auto", "pallas_stream", "hybrid")
+
+
+def _asset_files(root):
+    out = []
+    for d, dirs, files in os.walk(os.path.join(root, "asset")):
+        dirs[:] = sorted(x for x in dirs if x != "__pycache__")
+        out += [os.path.relpath(os.path.join(d, f), root) for f in files if not f.endswith(".pyc")]
+    return sorted(out)
+
+
+VERBATIM = _asset_files(JAX_PKG) + [
+    "native/__init__.py", "native/bvh_builder.cpp", "native/exr_piz.cpp",
+    "types.py", "utils/log.py", "render/options.py",
+]
+
+
+@pytest.fixture(scope="module")
+def cornell(scenes_dir):
+    scene = compile_scene(read_scene(os.path.join(scenes_dir, "cornell.obj")))
+    return upload_scene({f.name: getattr(scene, f.name) for f in fields(scene)}, "cpu")
+
+
+def _rays(S, n=96):
+    g = np.random.default_rng(5)
+    lo = S["bvh_min"][0].numpy()
+    hi = S["bvh_max"][0].numpy()
+    o = (lo + g.uniform(0.1, 0.9, (n, 3)) * (hi - lo)).astype(np.float32)
+    d = g.normal(size=(n, 3)).astype(np.float32)
+    return (torch.from_numpy(o), torch.from_numpy(d), torch.full((n,), FLT_MAX),
+            torch.ones(n, dtype=torch.bool))
+
+
+def _leaf(closest):
+    """K1's leaf form where the closest hit runs K1, else None."""
+    P = getattr(closest, "packed", {})
+    return P.get("leaf") if "k1_words" in P else None
+
+
+@pytest.mark.parametrize("mode", CPU_MODES)
+def test_env_hh_reaches_only_the_modes_that_run_k1(cornell, monkeypatch, mode):
+    S = cornell
+    monkeypatch.setenv("POLARIS_TRI_TEST", "mt")
+    closest_mt, any_mt = tix.make_intersectors(S, mode)
+    monkeypatch.setenv("POLARIS_TRI_TEST", "hh")
+    closest, any_hit = tix.make_intersectors(S, mode)
+    assert _leaf(closest) == ("hh" if mode in RUNS_K1 else None)
+    assert _leaf(closest_mt) == ("det2" if mode in RUNS_K1 else None)
+    rays = _rays(S)
+    hit = closest(S, *rays)
+    assert hit.mask.any()
+    if mode not in RUNS_K1:  # the variable is ignored: the same hits
+        ref = closest_mt(S, *rays)
+        for f in tix.Hit._fields:
+            assert torch.equal(getattr(hit, f), getattr(ref, f)), f
+    assert torch.equal(any_hit(S, *rays), any_mt(S, *rays))
+
+
+@pytest.mark.parametrize("how", ["env", "argument"])
+def test_hybrid_runs_hh_on_its_primary_rays(cornell, monkeypatch, how):
+    S = cornell
+    if how == "env":
+        monkeypatch.setenv("POLARIS_TRI_TEST", "hh")
+        closest, any_hit = tix.make_intersectors(S, "hybrid")
+    else:
+        monkeypatch.delenv("POLARIS_TRI_TEST", raising=False)
+        closest, any_hit = tix.make_intersectors(S, "hybrid", tri_test="hh")
+    assert _leaf(closest) == "hh"
+    assert closest.tris_hh.shape == (12 * S["tri_v0"].shape[0],)
+    # bounce and shadow rays: the dense kernel, which has one test only
+    assert "k5_words" in closest.closest_bounce.packed
+    rays = _rays(S)
+    ref = tix.intersect_bvh(S, *rays, any_hit=False, leaf="hh", tris_hh=closest.tris_hh)
+    hit = closest(S, *rays)
+    for f in tix.Hit._fields:
+        assert torch.equal(getattr(hit, f), getattr(ref, f)), f
+
+
+@pytest.mark.parametrize("mode", [m for m in CPU_MODES if m not in RUNS_K1])
+def test_explicit_hh_raises_where_k1_does_not_run(cornell, monkeypatch, mode):
+    monkeypatch.delenv("POLARIS_TRI_TEST", raising=False)
+    with pytest.raises(ValueError, match="binary kernel"):
+        tix.make_intersectors(cornell, mode, tri_test="hh")
+
+
+@pytest.mark.parametrize("mode", ["kernel", "pallas"])
+def test_pallas_is_kernel(cornell, monkeypatch, mode):
+    """The JAX package's 'pallas' (its CLI's ``--mode``, ``parallel/
+    multihost.py``) is the port's 'kernel': on a CPU scene both refuse with
+    the same message, on a card both give K1's wrappers."""
+    from polaris_tpu_torch.ops import intersect_cuda
+
+    assert mode in tix.MODES
+    with pytest.raises(ValueError, match="mode='kernel' needs the scene on a CUDA device"):
+        tix.make_intersectors(cornell, mode)
+    calls = []
+    monkeypatch.setattr(intersect_cuda, "intersectors", lambda S, t: calls.append(t) or "K1")
+    card = dict(cornell, bvh_ldata=SimpleNamespace(device=torch.device("cuda")))
+    assert tix.make_intersectors(card, mode, tri_test="hh") == "K1"
+    assert calls == ["hh"]
+
+
+@pytest.mark.parametrize("mode,substitute", [("packet", "'auto'"), ("brute", "'pallas_dense'")])
+def test_xla_modes_raise_naming_the_substitute(cornell, mode, substitute):
+    assert mode in tix.MODES
+    with pytest.raises(ValueError) as err:
+        tix.make_intersectors(cornell, mode)
+    assert f"mode {mode!r}" in str(err.value) and f"use {substitute}" in str(err.value)
+    with pytest.raises(ValueError, match=re.escape("| hybrid | packet | brute)")):
+        tix.make_intersectors(cornell, "pallas_wide")
+
+
+@pytest.mark.parametrize("path", VERBATIM)
+def test_verbatim_copy_is_the_original_byte_for_byte(path):
+    with open(os.path.join(JAX_PKG, path), "rb") as a, open(os.path.join(PORT_PKG, path), "rb") as b:
+        assert a.read() == b.read(), path
+
+
+def test_verbatim_asset_tree_has_the_same_files():
+    assert _asset_files(PORT_PKG) == _asset_files(JAX_PKG)

@@ -302,8 +302,11 @@ def test_kernel_mode_on_cpu_raises(scenes):
     S = upload_scene(_scene_dict(scenes["sphere"]), "cpu")
     with pytest.raises(ValueError, match="CUDA"):
         make_intersectors(S, mode="kernel")
-    with pytest.raises(ValueError, match="unknown traversal mode"):
+    # the JAX package's name of the same mode
+    with pytest.raises(ValueError, match="CUDA"):
         make_intersectors(S, mode="pallas")
+    with pytest.raises(ValueError, match="unknown traversal mode"):
+        make_intersectors(S, mode="pallas_wide")
 
 
 def test_default_device_without_cuda_raises(scenes, monkeypatch):
