@@ -30,8 +30,9 @@ printing one JSON line:
             scene in shared memory, the five benchmark scenes, or in global
             memory, terrain320k; K2, K3: in shared memory, instanced, or in
             global memory, terrain819k; K4, K5, on the block-local schedule:
-            in shared memory, sphere, instanced and cornell, or in global
-            memory, cornell with the branch forced); K4 and K5 also on a
+            in shared memory, instanced and cornell, or in global memory,
+            sphere by the byte rule and cornell with the branch forced); K4
+            and K5 also on a
             frame whose first windows hold no active lane and through CUDA
             graph replays, each replay's outputs against the plain version.
             Each check names its branch; the bound on every ray set, the SIMT
@@ -788,8 +789,9 @@ def phase_kernels(ctx):
             check_schedule(fam, scene_name)
     # K4 and K5, on the block-local schedule, at the shapes of the cornell
     # frames that launch them; the buffer staged in shared memory on
-    # sphere, instanced and cornell, read from global memory on cornell
-    # with that branch forced; the schedule's edges in both branches
+    # instanced and cornell, read from global memory on sphere (by the byte
+    # rule) and on cornell with that branch forced; the schedule's edges in
+    # both branches
     for fam in BLOCK_LOCAL:
         for scene_name in ("sphere", "instanced"):
             check_sets(fam, scene_name)

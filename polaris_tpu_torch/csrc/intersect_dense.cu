@@ -27,30 +27,25 @@
 //     words: a 64-byte row per instance [3x4 world->object matrix, first,
 //     count, 0, 0], then a 48-byte row per triangle [v0, e1, e2] (.w
 //     unused), the rows scaled_math takes. It sits in shared memory when it
-//     fits (every scene dense mode takes: 4096 triangles are 196,608 bytes),
-//     so a triangle is three 16-byte loads that every lane of a warp shares
-//     (a broadcast), an instance four.
-//   * the geometry of K5_GROUP consecutive triangles is computed before any
-//     of them is accepted (independent work for the scheduler); acceptance
-//     stays strictly in order, against the numerators and the one
-//     denominator carried as ops/intersect_dense.py::dense_plain carries
-//     them, so every lane keeps the plain version's bits
-//   * any hit leaves at its first accepted triangle
+//     is small (cornell's 2,880 bytes, instanced's 16,704; the byte count
+//     picks), so a triangle is three 16-byte loads that every lane of a warp
+//     shares (a broadcast), an instance four.
+//   * the triangles of an instance through scan_rows of traverse_common.cuh,
+//     in order, against the numerators and the one denominator carried as
+//     ops/intersect_dense.py::dense_plain carries them, so every lane keeps
+//     the plain version's bits; any hit leaves at its first accepted
+//     triangle. Computing the geometry of 2 or 4 triangles before accepting
+//     them in order bought nothing on the H100 (PERF.md).
 //
 // Tensor cores have no place here: the work is dependent scalar fp32
 // arithmetic whose compares must round as the plain version's do.
 
 #include "traverse_block.cuh"
 
-#ifndef POLARIS_K5_GROUP
-#define POLARIS_K5_GROUP 2
-#endif
-
 namespace {
 
 using namespace polaris;
 
-constexpr int K5_GROUP = POLARIS_K5_GROUP;
 constexpr int INST_WORDS = 4, TRI_WORDS = 3;
 
 // K5's own buffer (see the head of this file)
@@ -60,68 +55,35 @@ struct DenseScene {
     int tri_at;  // the first triangle row's word
 };
 
-// the triangles [first, first + count) of one instance against the ray in
-// its space (indices clamped to `last`): the geometry of K5_GROUP triangles,
-// then their acceptance in order. True when an any-hit query is settled.
-template <bool ANY_HIT, bool STAGED>
-__device__ __forceinline__ bool scan_group(const Ray& r, const Words<STAGED>& w,
-                                           int tri_at, int first, int count,
-                                           int last, int inst, Best& best,
-                                           float& den) {
-    for (int j = 0; j < count; j += K5_GROUP) {
-        float u[K5_GROUP], v[K5_GROUP], t[K5_GROUP], det_a[K5_GROUP];
-        bool ok[K5_GROUP];
-#pragma unroll
-        for (int k = 0; k < K5_GROUP; ++k) {
-            const int at = tri_at + TRI_WORDS * min(first + j + k, last);
-            ok[k] = scaled_math<LEAF_DET2>(r, w[at], w[at + 1], w[at + 2], u[k], v[k],
-                                           t[k], det_a[k]) &
-                    (j + k < count);
-        }
-#pragma unroll
-        for (int k = 0; k < K5_GROUP; ++k) {
-            if (ANY_HIT) {
-                if (ok[k] & (t[k] < best.t * det_a[k])) {
-                    best.found = true;
-                    return true;
-                }
-            } else if (ok[k] & (t[k] * den < best.t * det_a[k])) {
-                best.found = true;
-                best.t = t[k];
-                den = det_a[k];
-                best.u = u[k];
-                best.v = v[k];
-                best.tri = min(first + j + k, last);
-                best.inst = inst;
-            }
-        }
-    }
-    return false;
-}
-
 template <bool ANY_HIT, bool STAGED>
 __global__ void __launch_bounds__(BLOCK_RAYS) dense(DenseScene sc, Rays rays) {
     extern __shared__ __align__(16) float4 smem[];
-    __shared__ uint64_t bar;
     const float4* base = sc.words;
     if constexpr (STAGED) {
-        stage_begin(smem, sc.words, sc.num_words, &bar);
+        stage_words_block(smem, sc.words, sc.num_words);
         base = smem;
     }
     const Words<STAGED> w{base};
-    live_windows<ANY_HIT, STAGED>(rays, &bar, [&](int ray) {
+    const auto rows = [&](int tri, float4& a, float4& b, float4& c) {
+        const int at = sc.tri_at + TRI_WORDS * tri;
+        a = w[at];
+        b = w[at + 1];
+        c = w[at + 2];
+    };
+    live_windows<ANY_HIT>(rays, [&](int ray) {
         if (ray < 0) return;
         const Ray world = load_ray(rays, ray);
         Best best{rays.maxt[ray], 0.0f, 0.0f, 0, 0, false};
         float den = 1.0f;
+        bool accepted = false;
         for (int inst = 0; inst < sc.num_inst; ++inst) {
             const int at = INST_WORDS * inst;
             Ray r = world;
             to_instance_rows(r, w[at], w[at + 1], w[at + 2]);
             const float4 range = w[at + 3];
-            if (scan_group<ANY_HIT>(r, w, sc.tri_at, __float_as_int(range.x),
-                                    __float_as_int(range.y), sc.num_tris - 1, inst,
-                                    best, den))
+            if (scan_rows<ANY_HIT, LEAF_DET2>(r, rows, __float_as_int(range.x),
+                                              __float_as_int(range.y), sc.num_tris - 1,
+                                              inst, best, den, accepted))
                 break;
         }
         if (!ANY_HIT) to_quotients(best, den);

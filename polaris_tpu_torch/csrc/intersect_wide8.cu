@@ -33,8 +33,8 @@
 //     28/22-bit encoding, so a visit is 14 vector loads and no clamp per
 //     child; 64-byte instance rows [3x4 world->object matrix, the
 //     instance's entry]; 48-byte triangle rows [v0, e1, e2]. The whole
-//     buffer sits in shared memory when it fits beside the stacks (the byte
-//     count picks), else it is read through L1 and L2.
+//     buffer sits in shared memory when it is small (cornell, instanced: the
+//     byte count picks), else it is read through L1 and L2.
 //   * the stack in shared memory, [depth][thread] so the 32 lanes of a warp
 //     fall on 32 banks, sized by the tree's own depth (stack_need)
 //   * while-while, as walk_rays does it: the lanes of a warp take inner
@@ -48,18 +48,9 @@
 #include "traverse_block.cuh"
 #include "traverse_wide.cuh"
 
-#ifndef POLARIS_K4_LAZY_INV
-#define POLARIS_K4_LAZY_INV 0
-#endif
-
 namespace {
 
 using namespace polaris;
-
-// the reciprocal direction of a ray in an instance's space is worked out at
-// the first wide node it visits there, not on entry (an instance whose tree
-// is one leaf, as each of cornell's, never needs it)
-constexpr bool LAZY_INV = POLARIS_K4_LAZY_INV;
 
 // K4's own buffer (see the head of this file)
 struct Wide8Scene {
@@ -81,8 +72,8 @@ __device__ __forceinline__ void decode(uint32_t e, int& typ, int& cnt, int& idx)
 // of `count` triangles from `first`) or STEP_POP.
 template <bool STAGED>
 __device__ __forceinline__ int step(const Wide8Scene& sc, const Words<STAGED>& w,
-                                    uint32_t& cur, Ray& r, bool& inv_ok, int& sp,
-                                    int& msbi, int& inst, float best_t, int* stack,
+                                    uint32_t& cur, Ray& r, int& sp, int& msbi,
+                                    int& inst, float best_t, int* stack,
                                     int& first, int& count) {
     int typ, cnt, idx;
     decode(cur, typ, cnt, idx);
@@ -95,19 +86,7 @@ __device__ __forceinline__ int step(const Wide8Scene& sc, const Words<STAGED>& w
         // instance entry: move the ray into the instance's space
         const int id = min(idx, sc.num_inst - 1);
         const int at = sc.inst_at + 4 * id;
-        if constexpr (LAZY_INV) {
-            const float4 a = w[at], b = w[at + 1], c = w[at + 2];
-            const float px = r.ox, py = r.oy, pz = r.oz, qx = r.dx, qy = r.dy, qz = r.dz;
-            r.ox = ((a.x * px + a.y * py) + a.z * pz) + a.w;
-            r.oy = ((b.x * px + b.y * py) + b.z * pz) + b.w;
-            r.oz = ((c.x * px + c.y * py) + c.z * pz) + c.w;
-            r.dx = (a.x * qx + a.y * qy) + a.z * qz;
-            r.dy = (b.x * qx + b.y * qy) + b.z * qz;
-            r.dz = (c.x * qx + c.y * qy) + c.z * qz;
-            inv_ok = false;
-        } else {
-            to_instance_rows(r, w[at], w[at + 1], w[at + 2]);
-        }
+        to_instance_rows(r, w[at], w[at + 1], w[at + 2]);
         msbi = sp;
         inst = id;
         cur = (uint32_t)__float_as_int(w[at + 3].x);
@@ -117,12 +96,6 @@ __device__ __forceinline__ int step(const Wide8Scene& sc, const Words<STAGED>& w
 
     // wide node: slab-test the 8 children; continue at the nearest hit
     // child, push the other hit children in slot order
-    if (LAZY_INV && !inv_ok) {
-        r.ix = inv_dir(r.dx);
-        r.iy = inv_dir(r.dy);
-        r.iz = inv_dir(r.dz);
-        inv_ok = true;
-    }
     const int at = WIDE_REC_WORDS * min(idx, sc.num_wide - 1);
     const float4 e0 = w[at + 12], e1 = w[at + 13];
     const uint32_t ent[WIDTH] = {
@@ -168,11 +141,10 @@ __device__ __forceinline__ int step(const Wide8Scene& sc, const Words<STAGED>& w
 // the next entry from this thread's stack, restoring the world-space ray
 // when the pop leaves an instance's tree; true when the stack is empty
 __device__ __forceinline__ bool pop(const Wide8Scene& sc, int& sp, int& msbi,
-                                    uint32_t& cur, Ray& r, bool& inv_ok,
-                                    const Ray& world, const int* stack) {
+                                    uint32_t& cur, Ray& r, const Ray& world,
+                                    const int* stack) {
     if (sp == msbi) {
         r = world;
-        inv_ok = true;
         msbi = -1;
     }
     --sp;
@@ -184,10 +156,9 @@ __device__ __forceinline__ bool pop(const Wide8Scene& sc, int& sp, int& msbi,
 template <bool ANY_HIT, bool STAGED>
 __global__ void __launch_bounds__(BLOCK_RAYS) traverse(Wide8Scene sc, Rays rays) {
     extern __shared__ __align__(16) float4 smem[];
-    __shared__ uint64_t bar;
     const float4* base = sc.words;
     if constexpr (STAGED) {
-        stage_begin(smem, sc.words, sc.num_words, &bar);
+        stage_words_block(smem, sc.words, sc.num_words);
         base = smem;
     }
     const Words<STAGED> w{base};
@@ -198,12 +169,12 @@ __global__ void __launch_bounds__(BLOCK_RAYS) traverse(Wide8Scene sc, Rays rays)
         b = w[at + 1];
         c = w[at + 2];
     };
-    live_windows<ANY_HIT, STAGED>(rays, &bar, [&](int ray) {
+    live_windows<ANY_HIT>(rays, [&](int ray) {
         Ray world, r;
         Best best{0.0f, 0.0f, 0.0f, 0, 0, false};
         int sp = 0, msbi = -1, inst = 0;
         uint32_t cur = (uint32_t)sc.root;
-        bool done = ray < 0, inv_ok = true;
+        bool done = ray < 0;
         if (!done) {
             world = load_ray(rays, ray);
             r = world;
@@ -216,18 +187,17 @@ __global__ void __launch_bounds__(BLOCK_RAYS) traverse(Wide8Scene sc, Rays rays)
             int first = 0, count = 0;
             while (__any_sync(FULL, !done && !at_leaf)) {
                 if (done || at_leaf) continue;
-                const int k = step(sc, w, cur, r, inv_ok, sp, msbi, inst, best.t, stack,
-                                   first, count);
+                const int k = step(sc, w, cur, r, sp, msbi, inst, best.t, stack, first, count);
                 if (k == STEP_LEAF)
                     at_leaf = true;
                 else if (k == STEP_POP)
-                    done = pop(sc, sp, msbi, cur, r, inv_ok, world, stack);
+                    done = pop(sc, sp, msbi, cur, r, world, stack);
             }
             if (at_leaf) {
                 if (leaf_rows_quot<ANY_HIT>(r, rows, first, count, sc.num_tris - 1, inst, best))
                     done = true;  // an any-hit query is settled
                 else
-                    done = pop(sc, sp, msbi, cur, r, inv_ok, world, stack);
+                    done = pop(sc, sp, msbi, cur, r, world, stack);
             }
         }
         if (ray >= 0) store_hit<ANY_HIT>(rays, ray, best);

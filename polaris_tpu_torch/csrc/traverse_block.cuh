@@ -23,19 +23,20 @@
 //     a prefix over the warps' counts. The live rays fill the leading warps;
 //     a warp past the last live ray skips the window whole. The arrays are
 //     double-buffered, so one barrier per window is enough.
-//   * THE SCENE IN SHARED MEMORY when it fits (the host picks by byte
-//     count): each block copies the kernel's buffer once, by one bulk copy
-//     (cp.async.bulk, completion on an mbarrier) started before the first
-//     window's compaction and waited for after it, or (POLARIS_STAGE_BULK=0)
-//     by cooperative 16-byte loads that the first window's barrier covers.
-//     Else every read goes through the read-only path, L1 and L2.
+//   * THE SCENE IN SHARED MEMORY when it is small (the host picks by byte
+//     count, ops/intersect_cuda.py::block_staging): each block copies the
+//     kernel's buffer once, by cooperative 16-byte loads issued before the
+//     first window's compaction, which the window's barrier completes. Else
+//     every read goes through the read-only path, L1 and L2. On the H100 a
+//     bulk copy (cp.async.bulk on an mbarrier) read slower on cornell's
+//     launches and no faster elsewhere, and a buffer above 48 KB read
+//     faster from L1 than staged, one copy per block (PERF.md).
 //
 // A lane's result depends on its own ray only, so the bits are the plain
 // version's whichever lane, window or block takes the ray.
 //
-// POLARIS_BLOCK_THREADS and POLARIS_STAGE_BULK are the schedule's two
-// tuning constants; scripts/torch_k1_timing.py --define sets them to time
-// the alternatives (PERF.md, the steps of PR 6).
+// POLARIS_BLOCK_THREADS is the schedule's tuning constant;
+// scripts/torch_k1_timing.py --define sets it to time another block size.
 
 #pragma once
 
@@ -43,9 +44,6 @@
 
 #ifndef POLARIS_BLOCK_THREADS
 #define POLARIS_BLOCK_THREADS 256
-#endif
-#ifndef POLARIS_STAGE_BULK
-#define POLARIS_STAGE_BULK 1
 #endif
 
 namespace polaris {
@@ -56,59 +54,23 @@ constexpr int BLOCK_RAYS = POLARIS_BLOCK_THREADS;
 constexpr int BLOCK_WARPS = BLOCK_RAYS / 32;
 static_assert(BLOCK_RAYS % 32 == 0 && BLOCK_WARPS <= 32, "whole warps, at most 32");
 
-// Start the copy of the first `num_words` words of `src` into shared memory
-// `dst`: one bulk copy issued by thread 0, completion counted on the
-// mbarrier `bar`, or cooperative 16-byte loads by every thread.
-__device__ __forceinline__ void stage_begin(float4* dst, const float4* src,
-                                            int num_words, uint64_t* bar) {
-    if constexpr (POLARIS_STAGE_BULK) {
-        const uint32_t b = smem_u32(bar);
-        if (threadIdx.x == 0) {
-            asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(b) : "memory");
-            asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-            const uint32_t bytes = 16u * (uint32_t)num_words;
-            asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-                         ::"r"(b), "r"(bytes) : "memory");
-            asm volatile(
-                "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-                "[%0], [%1], %2, [%3];"
-                ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(b) : "memory");
-        }
-    } else {
-        for (int k = threadIdx.x; k < num_words; k += BLOCK_RAYS) dst[k] = __ldg(src + k);
-    }
-}
-
-// Wait for the copy stage_begin started. Every thread calls it after a
-// __syncthreads() that follows stage_begin (the barrier publishes the
-// mbarrier's initialisation and, for cooperative loads, the copy itself).
-__device__ __forceinline__ void stage_wait(uint64_t* bar) {
-    if constexpr (POLARIS_STAGE_BULK) {
-        const uint32_t b = smem_u32(bar);
-        uint32_t done = 0;
-        while (!done) {
-            asm volatile(
-                "{\n .reg .pred p;\n"
-                " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-                " selp.u32 %0, 1, 0, p;\n}"
-                : "=r"(done) : "r"(b), "r"(0u) : "memory");
-        }
-    }
+// Copy the first `num_words` words of `src` into shared memory `dst`, every
+// thread of the block a share of them; complete at the block's next barrier.
+__device__ __forceinline__ void stage_words_block(float4* dst, const float4* src,
+                                                  int num_words) {
+    for (int k = threadIdx.x; k < num_words; k += BLOCK_RAYS) dst[k] = __ldg(src + k);
 }
 
 // The schedule. `body(ray)` runs on every thread of every warp that holds a
 // live ray in a window, with the ray's index, or -1 on a thread past the
 // window's last live ray (so a body may use warp-wide votes); the body
-// stores the ray's result. With STAGED, the scene copy that stage_begin
-// started is waited for before the first body runs (and before the block
-// exits).
-template <bool ANY_HIT, bool STAGED, class Body>
-__device__ __forceinline__ void live_windows(const Rays& rays, uint64_t* bar,
-                                             const Body& body) {
+// stores the ray's result. Shared memory written before the call (the
+// staged scene) is complete when the first body runs.
+template <bool ANY_HIT, class Body>
+__device__ __forceinline__ void live_windows(const Rays& rays, const Body& body) {
     __shared__ int order[2][BLOCK_RAYS];
     __shared__ int counts[2][BLOCK_WARPS];
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    bool waited = !STAGED;
     int buf = 0;
     for (int base = blockIdx.x * BLOCK_RAYS; base < rays.n;
          base += gridDim.x * BLOCK_RAYS, buf ^= 1) {
@@ -128,15 +90,7 @@ __device__ __forceinline__ void live_windows(const Rays& rays, uint64_t* bar,
             if (ray < 0 && threadIdx.x < before + c) ray = order[buf][32 * w + threadIdx.x - before];
             before += c;
         }
-        if (!waited) {
-            stage_wait(bar);
-            waited = true;
-        }
         if (32 * warp < before) body(ray);
-    }
-    if (!waited) {  // a block without a window (the grid never makes one)
-        __syncthreads();
-        stage_wait(bar);
     }
 }
 

@@ -80,6 +80,11 @@ SMEM_BUDGET = 232_448 - 1_024
 # threads per block, and rays per window, of K4's and K5's block-local
 # schedule (BLOCK_RAYS in csrc/traverse_block.cuh)
 BLOCK_THREADS = 256
+# the most shared memory a block of that schedule takes to stage its buffer
+# beside its stacks: on the H100 buffers of 62-143 KB (sphere, mitsuba) read
+# faster from L1 than copied by every block, at most three blocks per SM,
+# while cornell's and instanced's (3-47 KB) read faster staged (PERF.md)
+BLOCK_STAGE_BYTES = 48 * 1024
 
 LEAVES = {"mt": "det2", "hh": "hh"}
 
@@ -142,13 +147,13 @@ def staging_words(num_words: int, stack_cap: int):
 
 
 def block_staging(num_words: int, stack_cap: int):
-    """The same rule for K4 and K5 (the block-local schedule of
-    ``csrc/traverse_block.cuh``): a buffer of ``num_words`` words beside
-    ``BLOCK_THREADS`` stacks of ``stack_cap`` entries and the schedule's two
-    windows of ray indices (its static shared memory)."""
+    """K4's and K5's rule (the block-local schedule of
+    ``csrc/traverse_block.cuh``): ``("shared" | "global", bytes)``, the
+    shared memory a block needs for a buffer of ``num_words`` words and
+    ``BLOCK_THREADS`` stacks of ``stack_cap`` entries, and whether that is at
+    most ``BLOCK_STAGE_BYTES``, so the buffer is staged there."""
     need = 16 * num_words + 4 * stack_cap * BLOCK_THREADS
-    fits = need + 8 * BLOCK_THREADS <= SMEM_BUDGET
-    return ("shared" if fits else "global"), need
+    return ("shared" if need <= BLOCK_STAGE_BYTES else "global"), need
 
 
 def det2_rows(v0, e1, e2) -> np.ndarray:

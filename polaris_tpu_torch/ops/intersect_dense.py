@@ -24,9 +24,8 @@ this kernel may keep another triangle than they do; on the same triangle
 instance ``[3x4 world->object matrix, first, count, 0, 0]``, then a 48-byte
 row per triangle ``[v0, 0, e1, 0, e2, 0]``, with the staging branch
 (``intersect_cuda.block_staging``: the whole buffer in shared memory when it
-fits, which every scene of at most ``DENSE_MAX_TRIS`` triangles does unless
-it holds thousands of instances, else read through L1 and L2). The kernel
-runs the block-local schedule of ``csrc/traverse_block.cuh``.
+is small, cornell's and instanced's, else read through L1 and L2). The
+kernel runs the block-local schedule of ``csrc/traverse_block.cuh``.
 
 ``dense_plain`` is the PLAIN VERSION of the kernel: the same loops with all
 rays advanced together and the triangles taken in chunks; it reads the

@@ -38,8 +38,9 @@ counterpart: the loop runs to the entry's own count.
 
 with the stack each thread gets (``stack_need``, at least 1) and the staging
 branch (``intersect_cuda.block_staging``: the whole buffer in shared memory
-when it fits beside the stacks, else read through L1 and L2). The kernel
-runs the block-local schedule of ``csrc/traverse_block.cuh``.
+when it is small beside the stacks, cornell's and instanced's, else read
+through L1 and L2). The kernel runs the block-local schedule of
+``csrc/traverse_block.cuh``.
 
 ``traverse_wide`` is the PLAIN VERSION of both 8-wide kernels (this one and
 ``ops/intersect_wide8_nodes.py``): per-lane stacks advanced in lock step,
