@@ -32,9 +32,9 @@ printing one JSON line:
             global memory, terrain819k; K4, K5, on the block-local schedule:
             in shared memory, instanced and cornell, or in global memory,
             sphere by the byte rule and cornell with the branch forced); K4
-            and K5 also on a
-            frame whose first windows hold no active lane and through CUDA
-            graph replays, each replay's outputs against the plain version.
+            and K5 also on a frame whose first windows hold no active lane
+            and through CUDA graph replays, each replay's outputs against
+            the plain version.
             Each check names its branch; the bound on every ray set, the SIMT
             ceilings where the plain version counts work per lane (K1, K2,
             K3, K4). Every entry point's line also times a
@@ -549,7 +549,7 @@ def bound_ms(kern: Bound, rays, any_hit: bool, stats: dict):
     return max(t_bytes, t_flops), ("bytes" if t_bytes >= t_flops else "operations"), detail
 
 
-def graph_replays(kern: "Bound", rays, any_hit: bool, where: str, times: int = 3) -> dict:
+def graph_replays(kern: Bound, rays, any_hit: bool, where: str, times: int = 3) -> dict:
     """One launch captured into a CUDA graph and replayed ``times``
     times, its outputs spoiled before each replay: every replay writes
     the plain version's result, bit for bit."""

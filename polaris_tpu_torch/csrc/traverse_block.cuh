@@ -28,9 +28,9 @@
 //     kernel's buffer once, by cooperative 16-byte loads issued before the
 //     first window's compaction, which the window's barrier completes. Else
 //     every read goes through the read-only path, L1 and L2. On the H100 a
-//     bulk copy (cp.async.bulk on an mbarrier) read slower on cornell's
-//     launches and no faster elsewhere, and a buffer above 48 KB read
-//     faster from L1 than staged, one copy per block (PERF.md).
+//     bulk copy (cp.async.bulk on an mbarrier) cost about a microsecond more
+//     a launch on cornell's frames, and a buffer above 48 KB read faster
+//     from L1 than staged, one copy per block (PERF.md).
 //
 // A lane's result depends on its own ray only, so the bits are the plain
 // version's whichever lane, window or block takes the ray.

@@ -40,8 +40,9 @@ this script, so two trees are timed in one call on one card;
 it back in the next run (the 819k-triangle terrain takes about 25 s to
 compile). ``--staging global`` runs every kernel that has a staging branch
 with its buffer in global memory; ``--define NAME=VALUE`` (repeatable)
-builds the kernels with ``-DNAME=VALUE``, for the tuning constants of
-``csrc/traverse_block.cuh`` and ``csrc/intersect_dense.cu``. Needs a CUDA
+builds the kernels with ``-DNAME=VALUE`` (``POLARIS_BLOCK_THREADS``, the
+block size of ``csrc/traverse_block.cuh``, or any macro a source reads).
+Needs a CUDA
 device and nvcc; exits non-zero without a CUDA device. Prints one JSON
 object with the card's name and power limit.
 """
@@ -176,10 +177,7 @@ def main() -> int:
             o, d, maxt, alive = sr.rays["primary"]
             sr.rays["inactive"] = (o, d, maxt, torch.zeros_like(alive))
             for fam in kernels:
-                kern = sr.bound(fam)
-                if args.staging and "staging" in kern.P:
-                    kern.P = dict(kern.P, staging=args.staging)
-                    kern.staging = args.staging
+                kern = sr.bound(fam, args.staging) if args.staging else sr.bound(fam)
                 for key, any_hit in SETS:
                     rays = sr.rays[key]
                     row = {
