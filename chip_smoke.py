@@ -160,10 +160,12 @@ MAX_HH_LEVEL_SHARE = 1e-4
 # bytes of one node record as the kernel reads it (K1 and K3: a 64-byte
 # record of two data words and two child boxes; K2 and K4: their own
 # 224-byte records of 8 boxes and 8 ready entries), of one triangle (a
-# [v0, e1, e2] row kept as three 16-byte words; K1's Havel-Herout row
-# [N d0 N1 d1 N2 d2] is 48 bytes too) and of what it reads once per instance
-# besides the 3x4 matrix (the rest of a 64-byte row: a root, an entry, or
-# K5's first triangle and count). K1hh is K1 with its Havel-Herout triangle test: the same
+# [v0, e1, e2] row; K1, K2 and K3 keep it as three 16-byte words, and K1's
+# Havel-Herout row [N d0 N1 d1 N2 d2] is 48 bytes too) and of what it reads
+# once per instance besides the 3x4 matrix (K1, K2, K3: the rest of a
+# 64-byte row). K4 and K5 count what the function needs, 36 bytes a
+# triangle and K4's entry or K5's first triangle and count an instance, not
+# the padding of their own rows. K1hh is K1 with its Havel-Herout triangle test: the same
 # kernel body and library, two entry points of its own. K1 and K1hh read
 # entry functions of the same names as their LAUNCHES keys
 FAMILIES = {
@@ -199,14 +201,14 @@ FAMILIES = {
         replaces="polaris_tpu/ops/intersect_pallas8.py:154",
         names=("wide8_closest_hit", "wide8_any_hit"),
         keys=("closest_hit", "any_hit"), plain="wide8_plain", leaf="quot",
-        node_bytes=224, tri_bytes=48, inst_bytes=16,
+        node_bytes=224, tri_bytes=36, inst_bytes=4,
     ),
     "K5": dict(
         module="intersect_dense", mode="pallas_dense",
         replaces="polaris_tpu/ops/intersect_pallas_dense.py:40",
         names=("dense_closest_hit", "dense_any_hit"),
         keys=("closest_hit", "any_hit"), plain="dense_plain", leaf="det2",
-        node_bytes=0, tri_bytes=48, inst_bytes=16,
+        node_bytes=0, tri_bytes=36, inst_bytes=8,
     ),
 }
 K1_FAMILIES = ("K1", "K1hh")

@@ -34,23 +34,16 @@
 //
 // A lane's result depends on its own ray only, so the bits are the plain
 // version's whichever lane, window or block takes the ray.
-//
-// POLARIS_BLOCK_THREADS is the schedule's tuning constant;
-// scripts/torch_k1_timing.py --define sets it to time another block size.
 
 #pragma once
 
 #include "traverse_common.cuh"
 
-#ifndef POLARIS_BLOCK_THREADS
-#define POLARIS_BLOCK_THREADS 256
-#endif
-
 namespace polaris {
 
 // threads per block, and rays per window (BLOCK_THREADS in
 // ops/intersect_cuda.py, whose staging rule counts them)
-constexpr int BLOCK_RAYS = POLARIS_BLOCK_THREADS;
+constexpr int BLOCK_RAYS = 256;
 constexpr int BLOCK_WARPS = BLOCK_RAYS / 32;
 static_assert(BLOCK_RAYS % 32 == 0 && BLOCK_WARPS <= 32, "whole warps, at most 32");
 

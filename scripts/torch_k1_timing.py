@@ -7,7 +7,7 @@ cornell frames give them (one GPU).
     python3 scripts/torch_k1_timing.py --kernels K2,K3 \
                                        --scenes instanced,terrain819k
     python3 scripts/torch_k1_timing.py --kernels K4,K5 --scenes cornell256 \
-                                       [--staging global] [--define NAME=VALUE]
+                                       [--staging global]
 
 For each scene (default: the five benchmark configurations at their frame
 sizes, sphere, cornell, mitsuba, instanced 512x512 and dispersive 1024x1024,
@@ -34,15 +34,12 @@ kernels' sources once more with ``-Xptxas -v`` and prints what the assembler
 reports per entry point (registers, stack frame, spills, shared memory).
 
 ``--tree DIR`` times the package and ``chip_smoke.py`` of another checkout
-(for instance the parent commit unpacked under an ignored directory) with
-this script, so two trees are timed in one call on one card;
+(the parent commit, or a variant of a kernel, unpacked under an ignored
+directory) with this script, so two trees are timed in one call on one card;
 ``--scene-cache DIR`` keeps each compiled scene there as ``.npz`` and reads
 it back in the next run (the 819k-triangle terrain takes about 25 s to
 compile). ``--staging global`` runs every kernel that has a staging branch
-with its buffer in global memory; ``--define NAME=VALUE`` (repeatable)
-builds the kernels with ``-DNAME=VALUE`` (``POLARIS_BLOCK_THREADS``, the
-block size of ``csrc/traverse_block.cuh``, or any macro a source reads).
-Needs a CUDA
+with its buffer in global memory. Needs a CUDA
 device and nvcc; exits non-zero without a CUDA device. Prints one JSON
 object with the card's name and power limit.
 """
@@ -147,7 +144,6 @@ def main() -> int:
                     help="the checkout whose package and chip_smoke.py are timed")
     ap.add_argument("--scene-cache", default=None)
     ap.add_argument("--staging", choices=("global",), default=None)
-    ap.add_argument("--define", action="append", default=[])
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -156,14 +152,12 @@ def main() -> int:
     root = os.path.abspath(args.tree)
     sys.path.insert(0, root)
     import chip_smoke
-    from polaris_tpu_torch.ops import _launch
     from polaris_tpu_torch.ops import intersect as tix
 
-    _launch.EXTRA_FLAGS = tuple(_launch.EXTRA_FLAGS) + tuple(f"-D{x}" for x in args.define)
     kernels = args.kernels.split(",")
     card = chip_smoke.nvidia_smi_line()
     report = {"card": card, "torch": torch.__version__, "root": root,
-              "defines": args.define, "staging": args.staging, "sets": []}
+              "staging": args.staging, "sets": []}
     if args.ptxas:
         report["ptxas"] = ptxas_report(kernels)
     ceilings = getattr(tix, "simt_ceilings", None)

@@ -15,10 +15,9 @@ sphere (no Pallas, no JAX call):
   * the staging rule, by byte count
   * a plain walk over K4's buffer equals ``wide8_plain`` bit for bit, and
     ``stack_cap`` bounds its stack
-  * K5's loop over its buffer, with the geometry of a group of 1, 2 or 4
-    triangles computed before their acceptance in order (the kernel takes
-    groups of 1; 2 and 4 were timed on the card) and the numerators over one
-    denominator, equals ``dense_plain`` bit for bit
+  * K5's loop over its buffer, one triangle at a time accepted in order
+    against the numerators over one denominator, equals ``dense_plain`` bit
+    for bit
   * the schedule's window and compaction map, transcribed from
     ``live_windows`` and ``launch_block``, hands every active ray to exactly
     one thread and writes every inactive one exactly once
@@ -143,7 +142,7 @@ def test_staging_rule_by_counts(packed):
     # the kernels' constant, as the staging rule counts it
     src = os.path.join(os.path.dirname(k1.__file__), "..", "csrc", "traverse_block.cuh")
     with open(src) as f:
-        assert f"#define POLARIS_BLOCK_THREADS {threads}\n" in f.read()
+        assert f"constexpr int BLOCK_RAYS = {threads};\n" in f.read()
 
 
 def _k4_layout(P) -> k4.WideLayout:
@@ -186,12 +185,11 @@ def test_plain_walk_over_k4_buffer_equals_wide8_plain(compiled, packed, name, an
         assert stats[k] == ref_stats[k], k
 
 
-def _k5_kernel_loop(P, o, d, maxt, active, *, any_hit: bool, group: int) -> tix.Hit:
-    """K5's loop (``csrc/intersect_dense.cu``) over its own buffer, all rays
-    in lock step: per instance the ray moved once, then per group of
-    ``group`` triangles the geometry of all of them (clamped indices, a
-    tail past the instance's count never accepted), then their acceptance in
-    order against the numerators over one denominator; one divide per ray."""
+def _k5_kernel_loop(P, o, d, maxt, active, *, any_hit: bool) -> tix.Hit:
+    """K5's loop (``csrc/intersect_dense.cu``, ``scan_rows``) over its own
+    buffer, all rays in lock step: per instance the ray moved once, then
+    each triangle of its range in order, tested and accepted against the
+    numerators over one denominator; one divide per ray."""
     words = P["k5_words"]
     I, T = P["num_inst"], P["num_tris"]
     inst = words[: 16 * I].view(I, 16)
@@ -209,41 +207,34 @@ def _k5_kernel_loop(P, o, d, maxt, active, *, any_hit: bool, group: int) -> tix.
     for ii, (first, count) in enumerate(ranges):
         m = w2o[ii : ii + 1].expand(n, 3, 4)
         io, idr = tix._xform(m, o, 1), tix._xform(m, d, 0)
-        for j in range(0, count, group):
-            tests = []
-            for k in range(group):
-                tri = min(first + j + k, T - 1)
-                ok, u, v, t, det_a = tix._mt_tests_det2(
-                    tris, torch.full((n, 1), tri), io, idr
-                )
-                tests.append((ok[:, 0] & (j + k < count), u[:, 0], v[:, 0], t[:, 0],
-                              det_a[:, 0], tri))
-            for ok, u, v, t, det_a, tri in tests:
-                if any_hit:
-                    found |= active & ~found & ok & (t < best_t * det_a)
-                    continue
-                acc = active & ok & (t * den < best_t * det_a)
-                found |= acc
-                best_t = torch.where(acc, t, best_t)
-                den = torch.where(acc, det_a, den)
-                best_u = torch.where(acc, u, best_u)
-                best_v = torch.where(acc, v, best_v)
-                best_tri = torch.where(acc, tri, best_tri)
-                best_inst = torch.where(acc, ii, best_inst)
+        for tri in range(first, first + count):
+            ok, u, v, t, det_a = (
+                x[:, 0] for x in tix._mt_tests_det2(tris, torch.full((n, 1), tri), io, idr)
+            )
+            if any_hit:
+                found |= active & ~found & ok & (t < best_t * det_a)
+                continue
+            acc = active & ok & (t * den < best_t * det_a)
+            found |= acc
+            best_t = torch.where(acc, t, best_t)
+            den = torch.where(acc, det_a, den)
+            best_u = torch.where(acc, u, best_u)
+            best_v = torch.where(acc, v, best_v)
+            best_tri = torch.where(acc, tri, best_tri)
+            best_inst = torch.where(acc, ii, best_inst)
     inv = 1.0 / den
     t = torch.where(found, best_t * inv, 0.0)
     return tix.Hit(t, best_inst, best_tri, best_u * inv, best_v * inv, active & found)
 
 
 @pytest.mark.parametrize("any_hit", [False, True])
-@pytest.mark.parametrize("group", [1, 2, 4])
-def test_k5_grouped_acceptance_equals_dense_plain(compiled, packed, group, any_hit):
-    """On cornell: 18 instances of two triangles, so a group of 4 has a
-    tail past every instance's count."""
-    P = upload_packed(packed["cornell"][1], "cpu")
-    rays = _rays(compiled["cornell"], seed=23 + group)
+@pytest.mark.parametrize("name", SCENES)
+def test_k5_in_order_acceptance_equals_dense_plain(compiled, packed, name, any_hit):
+    """On cornell (18 instances of two triangles), instanced and sphere."""
+    P = upload_packed(packed[name][1], "cpu")
+    rays = _rays(compiled[name], seed=24)
     ref = k5.dense_plain(P, *rays, any_hit=any_hit)
-    got = _k5_kernel_loop(P, *rays, any_hit=any_hit, group=group)
+    got = _k5_kernel_loop(P, *rays, any_hit=any_hit)
     assert ref.mask.any() and (~ref.mask & rays[3]).any()
     if any_hit:
         assert torch.equal(got.mask, ref.mask)
