@@ -53,25 +53,39 @@ printing one JSON line:
             with each of its triangle tests, against the accumulators the JAX
             package rendered (tests/fixtures)
   flagship  sphere 128x128, 4 spp, 5 bounces, RR after 3, path regeneration
-            through K1 and through K1's plain version: no pixel of the two
-            u8 images more than one level apart. The flagship frame at full
-            size is the first row of ``configs``
+            through K1 (the renderer's CUDA graphs) and through K1's plain
+            version (the eager loop functions: the plain traversal cannot be
+            captured): no pixel of the two u8 images more than one level
+            apart. The flagship frame at full size is the first row of
+            ``configs``
   bigscene  terrain819k 512x512, 4 spp, 3 bounces, RR after 4,
-            ``spp_per_launch=1``, ``render_u8`` through K2
-            (mode 'pallas8_nodes') and through K3 ('pallas_nodes'): one
-            warm-up, best of 2, launch counts read around one frame, image
-            non-black, the two u8 images equal; then 'hybrid' (K1 + K5) and
-            'pallas8' (K4) on cornell 256x256, 4 spp against mode 'kernel':
-            no pixel more than one u8 level apart
+            ``spp_per_launch=1``, through K2 (mode 'pallas8_nodes') and K3
+            ('pallas_nodes'); then 'hybrid' (K1 + K5) and 'pallas8' (K4) on
+            cornell 256x256, 4 spp, against mode 'kernel': no pixel more
+            than one u8 level apart; the K2 and K3 u8 images equal. Every
+            frame as in ``configs``: graphs against the eager loops
   configs   the five benchmark configurations of the JAX package's
             bench_configs.py at their full sizes (sphere, mitsuba, instanced
             512x512 16 spp; cornell 512x512 64 spp; dispersive 1024x1024
             256 spp; 5 bounces, RR after 3, mode 'auto', path regeneration,
-            ``spp_per_launch=16``, ``render_u8``): one warm-up, best of 2 (of
-            3 for sphere, the flagship frame; of 1 from 128 spp on); frame
-            ms, Mrays/s, trips, K1 launches, image non-black. Then sphere and
-            mitsuba once more through the Havel-Herout test, with the u8
-            level difference to the default
+            ``spp_per_launch=16``), each through ``TorchRenderer`` (one step
+            of the loop replayed from a CUDA graph; ``render_accum`` once,
+            which captures the graphs, then ``render_u8`` best of 2, of 3
+            for sphere, of 1 from 128 spp on) and through the eager loop
+            functions (best of 1, of 2 for sphere), in this process: the f32
+            accumulators and the u8 images equal bit for bit, the same
+            trips; frame ms both ways, Mrays/s, trips and overshoot trips
+            (run after the last lane died, before the stop test was read),
+            host syncs a frame, capture seconds, peak memory, launch counts
+            (closest-hit launches = trips run). Then sphere and mitsuba once
+            more through the Havel-Herout test, with the u8 level difference
+            to the default
+  adaptive  cornell 512x512, a cap of 64 spp, chunks of 16, tol 0.08,
+            through the sequential loop's graphs: frame ms, mean spp, the
+            share of blocks stopped, MSE of the tonemapped image against a
+            256-spp uniform render; each stopped block bit-equal to
+            ``render_accum_offset`` at its count, ``tol=0`` bit-equal to it
+            at 64 spp
 
 The last three lines of the output are: the card's name and power limit as
 nvidia-smi prints them, one JSON object ``{"kernels": [...]}`` with the twelve
@@ -124,6 +138,9 @@ RAGGED = 100_003  # a ray count that is no multiple of the block size
 # the big-scene frame (the JAX package's bench_big.py workload)
 BIG_GRID, BIG_SPP, BIG_BOUNCES, BIG_RR_AFTER = 640, 4, 3, 4
 STREAM_GRID = 400  # terrain320k: the scene the JAX package streams triangles for
+# adaptive sampling on cornell: a cap, a chunk and a tolerance of the JAX
+# package's scripts/bench_adaptive.py; its 1024-spp reference cut to 256
+ADAPT_SPP, ADAPT_CHUNK, ADAPT_TOL, ADAPT_REF_SPP = 64, 16, 0.08, 256
 # the scenes of the mode-by-scene grid; the two mid-size terrains (grids 100
 # and 200) are there to show whether 'auto' should leave K1 at some size
 GRID_SCENES = (
@@ -925,9 +942,12 @@ def phase_flagship(sphere):
     """The flagship estimator (path regeneration, RR after 3) through K1 and
     through K1's plain version on a small frame: no pixel of the two u8
     images more than one level apart, at most 0.1% of them apart at all. The
-    frame at its full size is timed as the first configuration."""
+    kernel's frame runs from the renderer's CUDA graphs; the plain
+    traversal, which reads its loop condition back to the host and cannot be
+    captured, runs through the eager loop functions. The frame at its full
+    size is timed as the first configuration."""
     from polaris_tpu_torch.ops.intersect import intersect_bvh
-    from polaris_tpu_torch.render.integrator import TorchRenderer
+    from polaris_tpu_torch.render.integrator import TorchRenderer, render_blocked_eager
     from polaris_tpu_torch.render.options import RenderOptions
 
     small = RenderOptions(
@@ -938,15 +958,15 @@ def phase_flagship(sphere):
     for plain in (False, True):
         r = TorchRenderer(sphere, mode="kernel", regen=True)
         r.spp_per_launch = 16
-        if plain:
-            r.closest = lambda S, *rays: intersect_bvh(
-                S, *rays, any_hit=False, leaf="det2"
-            )
-            r.any_hit = lambda S, *rays: intersect_bvh(
-                S, *rays, any_hit=True, leaf="det2"
-            ).mask
-        images.append(r.render_u8(small).astype(np.int16))
-    diff = np.abs(images[0] - images[1])
+        if not plain:
+            images.append(r.render_u8(small).astype(np.int16))
+            continue
+        r.closest = lambda S, *rays: intersect_bvh(S, *rays, any_hit=False, leaf="det2")
+        r.any_hit = lambda S, *rays: intersect_bvh(S, *rays, any_hit=True, leaf="det2").mask
+        acc, _ = render_blocked_eager(r, small)
+        images.append(r.finalize(acc, small, "u8").cpu().numpy().astype(np.int16))
+    kernel_img, plain_img = images
+    diff = np.abs(kernel_img - plain_img)
     off = int((diff > 0).any(axis=-1).sum())
     if int(diff.max()) > 1 or off > 0.001 * 128 * 128:
         fail(
@@ -960,21 +980,105 @@ def phase_flagship(sphere):
     )
 
 
-def timed_frames(renderer, opt, module, reps: int):
-    """One warm-up, then ``reps`` frames with the module's launch counts set
-    to 0 just before each and read just after. Returns (best seconds, all
-    seconds, last image, launch counts of the last frame)."""
-    renderer.render_u8(opt)
-    times, img, launches = [], None, {}
-    for _ in range(reps):
-        module.reset_launches()
+# the kernel modules whose launch counts a frame reads, K1hh counted as K1
+COUNTED = ("K1", "K2", "K3", "K4", "K5")
+
+
+def reset_launches() -> None:
+    for fam in COUNTED:
+        module_of(fam).reset_launches()
+
+
+def read_launches() -> dict:
+    """Every entry point launched since the last reset, by family."""
+    out = {}
+    for fam in COUNTED:
+        counts = {k: v for k, v in module_of(fam).LAUNCHES.items() if v}
+        if counts:
+            out[fam] = counts
+    return out
+
+
+def graph_against_eager(renderer, opt, label: str, graph_reps: int, eager_reps: int):
+    """One configuration's frames through the renderer (its CUDA graphs) and
+    through the eager loop functions, in this process. First a
+    ``render_accum`` frame, which captures the graphs (its seconds and the
+    capture's are reported apart, outside the timed frames); then
+    ``graph_reps`` timed ``render_u8`` frames and ``eager_reps`` timed eager
+    frames, the launch counts set to 0 just before each and read just after.
+    Fails unless the f32 accumulators and the u8 images of the two are equal
+    bit for bit, the two loops count the same trips, and every frame's
+    closest-hit launches equal the trips it ran (overshoot included). Returns
+    (row, graph u8 image, graph launch counts)."""
+    from polaris_tpu_torch.render.integrator import render_blocked_eager
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    acc_graph = renderer.render_accum(opt)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    times, img, counts = [], None, {}
+    for _ in range(graph_reps):
+        reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         img = renderer.render_u8(opt)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-        launches = dict(module.LAUNCHES)
-    return min(times), times, img, launches
+        counts = read_launches()
+    graph_peak = torch.cuda.max_memory_allocated()
+    trips, trips_run = renderer.last_trips, renderer.last_trips_run
+    closest = sum(c.get("closest_hit", 0) + c.get("closest_hit_hh", 0) for c in counts.values())
+    if closest != trips_run:
+        fail(f"{label}: {closest} closest-hit launches in a graph frame that ran "
+             f"{trips_run} trips ({trips} with a live lane)")
+
+    torch.cuda.reset_peak_memory_stats()
+    eager_times, eager_counts = [], {}
+    for _ in range(eager_reps):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        acc, eager_trips = render_blocked_eager(renderer, opt)
+        eager_img = renderer.finalize(acc, opt, "u8").cpu().numpy()
+        torch.cuda.synchronize()
+        eager_times.append(time.perf_counter() - t0)
+        eager_counts = read_launches()
+    eager_closest = sum(
+        c.get("closest_hit", 0) + c.get("closest_hit_hh", 0) for c in eager_counts.values()
+    )
+    if eager_closest != eager_trips:
+        fail(f"{label}: {eager_closest} closest-hit launches in an eager frame of "
+             f"{eager_trips} trips")
+    if eager_trips != trips:
+        fail(f"{label}: the graphs counted {trips} trips, the eager loop {eager_trips}")
+    if not torch.equal(acc_graph, renderer.finalize(acc, opt)):
+        fail(f"{label}: the graph and eager f32 accumulators differ")
+    if img.shape != (opt.height, opt.width, 3) or img.dtype != np.uint8:
+        fail(f"{label}: unexpected image {img.shape} {img.dtype}")
+    if not np.array_equal(img, eager_img):
+        fail(f"{label}: the graph and eager u8 images differ in "
+             f"{int((img != eager_img).any(axis=-1).sum())} pixels")
+    if not img.mean() > 1.0:
+        fail(f"{label}: black image (mean {img.mean():.3f})")
+    rays = opt.width * opt.height * opt.spp * opt.num_bounces * 2
+    best, eager_best = min(times), min(eager_times)
+    row = {
+        "frame": f"{opt.width}x{opt.height}x{opt.spp}spp",
+        "frame_ms": best * 1e3, "frame_ms_all": [t * 1e3 for t in times],
+        "mrays_per_s": rays / best / 1e6,
+        "eager_frame_ms": eager_best * 1e3,
+        "eager_frame_ms_all": [t * 1e3 for t in eager_times],
+        "trips": trips, "trips_run": trips_run, "overshoot_trips": trips_run - trips,
+        "host_syncs_per_frame": renderer.last_host_syncs,
+        "first_frame_s": first_s, "capture_s": renderer.capture_seconds,
+        "graphs": sum(len(p.steps) for p in renderer._programs.values()),
+        "peak_mem_bytes": graph_peak, "eager_peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        "launches": counts, "eager_launches": eager_counts,
+        "accum_equal": True, "u8_equal": True, "image_mean": float(img.mean()),
+    }
+    return row, img, counts
 
 
 def level_diff(img, base, label: str, max_share: float) -> dict:
@@ -999,54 +1103,47 @@ def level_diff(img, base, label: str, max_share: float) -> dict:
 def phase_configs(scenes, smi: str):
     """This slice's path at full width: the five benchmark configurations
     (the first is the flagship frame, best of 3), each through
-    ``TorchRenderer(mode="auto", regen=True)`` and ``render_u8``, then sphere and mitsuba once more through the Havel-Herout test. Returns
-    K1's launch counts: the default test's from the last frame of the
-    flagship configuration, the Havel-Herout test's from its sphere frame."""
-    from polaris_tpu_torch.ops import intersect_cuda
+    ``TorchRenderer(mode="auto", regen=True)`` (CUDA graphs, ``render_u8``)
+    and through the eager loop functions, then sphere and mitsuba once more
+    through the Havel-Herout test, with the u8 level difference to the
+    default. Returns K1's launch counts: the default test's from the last
+    graph frame of the flagship configuration, the Havel-Herout test's from
+    its sphere frame."""
     from polaris_tpu_torch.render.integrator import TorchRenderer
     from polaris_tpu_torch.render.options import RenderOptions
 
-    def run(name, w, h, spp, tri_test, reps):
+    def run(name, w, h, spp, tri_test, reps, eager_reps):
         renderer = TorchRenderer(scenes[name], mode="auto", regen=True, tri_test=tri_test)
         renderer.spp_per_launch = 16
         opt = RenderOptions(
             width=w, height=h, spp=spp, num_bounces=BOUNCES,
             min_bounces_for_rr=RR_AFTER,
         )
-        best, times, img, counts = timed_frames(renderer, opt, intersect_cuda, reps)
         label = f"configs/{name}/{tri_test}"
-        if img.shape != (h, w, 3) or img.dtype != np.uint8:
-            fail(f"{label}: unexpected image {img.shape} {img.dtype}")
-        if not img.mean() > 1.0:
-            fail(f"{label}: black image (mean {img.mean():.3f})")
-        keys = FAMILIES["K1hh" if tri_test == "hh" else "K1"]["keys"]
-        for key, count in counts.items():
-            if (count > 0) != (key in keys):
-                fail(f"{label}: entry point {key} launched {count} times")
-        if counts[keys[0]] != renderer.last_trips:
-            fail(f"{label}: closest-hit launches differ from the loop's trip count")
-        rays = w * h * spp * BOUNCES * 2
-        row = {
-            "scene": name, "frame": f"{w}x{h}x{spp}spp", "tri_test": tri_test,
-            "triangles": int(scenes[name].tri_v0.shape[0]),
-            "frame_ms": best * 1e3, "frame_ms_all": [t * 1e3 for t in times],
-            "mrays_per_s": rays / best / 1e6, "trips": renderer.last_trips,
-            "launches": {k: counts[k] for k in keys},
-            "image_mean": float(img.mean()),
-        }
-        return row, img, counts
+        row, img, counts = graph_against_eager(renderer, opt, label, reps, eager_reps)
+        fam = "K1hh" if tri_test == "hh" else "K1"
+        keys = FAMILIES[fam]["keys"]
+        k1 = counts.get("K1", {})
+        if set(counts) != {"K1"} or set(k1) != set(keys):
+            fail(f"{label}: launched {counts}, expected {keys} of K1 only")
+        row = {"scene": name, "tri_test": tri_test,
+               "triangles": int(scenes[name].tri_v0.shape[0]), **row,
+               "launches": {k: k1[k] for k in keys}}
+        del renderer
+        torch.cuda.empty_cache()
+        return row, img, k1
 
     rows, images, launches = [], {}, {}
     for name, w, h, spp in CONFIGS:
         reps = 1 if spp >= 128 else 3 if name == "sphere" else 2
-        row, images[name], counts = run(name, w, h, spp, "mt", reps)
+        row, images[name], counts = run(name, w, h, spp, "mt", reps, 2 if name == "sphere" else 1)
         rows.append(row)
         if name == "sphere":
             launches.update({k: counts[k] for k in FAMILIES["K1"]["keys"]})
     for name, w, h, spp in CONFIGS:
         if name not in ("sphere", "mitsuba"):
             continue
-        row, img, counts = run(name, w, h, spp, "hh", 1)
+        row, img, counts = run(name, w, h, spp, "hh", 1, 1)
         row["against_mt"] = level_diff(
             img, images[name], f"configs/{name}: hh against mt", MAX_HH_LEVEL_SHARE
         )
@@ -1060,7 +1157,9 @@ def phase_configs(scenes, smi: str):
 def phase_bigscene(terrain, cornell, smi: str):
     """The big-scene path at full width: the 819k-triangle terrain through the
     8-wide record kernel and the binary record kernel, then the two modes
-    that hang off the same switch on cornell."""
+    that hang off the same switch on cornell; every frame through the
+    renderer's CUDA graphs and through the eager loop functions, equal bit
+    for bit."""
     from polaris_tpu_torch.render.integrator import TorchRenderer
     from polaris_tpu_torch.render.options import RenderOptions
 
@@ -1068,32 +1167,24 @@ def phase_bigscene(terrain, cornell, smi: str):
         width=FRAME, height=FRAME, spp=BIG_SPP, num_bounces=BIG_BOUNCES,
         min_bounces_for_rr=BIG_RR_AFTER,
     )
-    rays = opt.width * opt.height * opt.spp * opt.num_bounces * 2
     launches, frames, images = {}, {}, {}
     for fam in ("K2", "K3"):
-        module = module_of(fam)
         renderer = TorchRenderer(terrain, mode=FAMILIES[fam]["mode"])
         renderer.spp_per_launch = 1  # as bench_big.py: keep launches short
-        best, times, img, counts = timed_frames(renderer, opt, module, reps=2)
-        if img.shape != (FRAME, FRAME, 3) or img.dtype != np.uint8:
-            fail(f"bigscene/{fam}: unexpected image {img.shape} {img.dtype}")
-        if not img.mean() > 1.0:
-            fail(f"bigscene/{fam}: black image (mean {img.mean():.3f})")
-        for name, count in counts.items():
+        row, img, counts = graph_against_eager(renderer, opt, f"bigscene/{fam}", 2, 1)
+        if set(counts) != {fam}:
+            fail(f"bigscene/{fam}: launched {counts}")
+        for name, count in counts[fam].items():
             if count != opt.spp * opt.num_bounces:
                 fail(
                     f"bigscene/{fam}: {name} launched {count} times in one frame, "
                     f"expected {opt.spp * opt.num_bounces}"
                 )
-        launches[fam] = counts
+        launches[fam] = counts[fam]
         images[fam] = img
-        frames[fam] = {
-            "mode": FAMILIES[fam]["mode"], "frame_ms": best * 1e3,
-            "frame_ms_all": [t * 1e3 for t in times],
-            "mrays_per_s": rays / best / 1e6, "launches": counts,
-            "image_mean": float(img.mean()),
-        }
+        frames[fam] = {"mode": FAMILIES[fam]["mode"], **row, "launches": counts[fam]}
         del renderer
+        torch.cuda.empty_cache()
     differing = int((images["K2"] != images["K3"]).any(axis=-1).sum())
     if differing:
         fail(f"bigscene: the K2 and K3 u8 images differ in {differing} pixels")
@@ -1107,19 +1198,16 @@ def phase_bigscene(terrain, cornell, smi: str):
     base = TorchRenderer(cornell, mode="kernel").render_u8(small).astype(np.int16)
     cornell_checks = {}
     for mode, fam in (("hybrid", "K5"), ("pallas8", "K4")):
-        module = module_of(fam)
         renderer = TorchRenderer(cornell, mode=mode)
-        best, times, img, counts = timed_frames(renderer, small, module, reps=1)
-        for name, count in counts.items():
-            if count <= 0:
+        row, img, counts = graph_against_eager(renderer, small, f"bigscene/{mode}", 1, 1)
+        for name in FAMILIES[fam]["keys"]:
+            if counts.get(fam, {}).get(name, 0) <= 0:
                 fail(f"bigscene/{mode}: {fam} {name} was never launched")
         # K4 divides per triangle and K5 once per ray where K1 divides once
         # per leaf: a hit may move by an ulp, a pixel by a level, no more
         levels = level_diff(img, base, f"bigscene/{mode} against mode 'kernel'", 0.0)
-        launches[fam] = counts
-        cornell_checks[mode] = {
-            "kernel": fam, "frame_ms": best * 1e3, "launches": counts, **levels,
-        }
+        launches[fam] = counts[fam]
+        cornell_checks[mode] = {"kernel": fam, **row, **levels}
     emit(
         "bigscene", card=smi, scene=f"terrain grid {BIG_GRID}",
         frame=f"{FRAME}x{FRAME}x{BIG_SPP}spp, {BIG_BOUNCES} bounces",
@@ -1127,6 +1215,76 @@ def phase_bigscene(terrain, cornell, smi: str):
         cornell=f"{SMALL_FRAME}x{SMALL_FRAME}x4spp", cornell_checks=cornell_checks,
     )
     return launches
+
+
+def phase_adaptive(cornell, smi: str):
+    """Adaptive per-block sampling on cornell 512x512 (a cap of ADAPT_SPP
+    samples, chunks of ADAPT_CHUNK, ``tol`` ADAPT_TOL: a tolerance, the chunk
+    and the scene of the JAX package's scripts/bench_adaptive.py), through
+    the sequential loop's graphs. One warm-up, best of 2; frame ms, mean
+    spp, the share of blocks stopped, the MSE of the tonemapped image
+    against a uniform ADAPT_REF_SPP render (and the uniform ADAPT_SPP
+    frame's). Fails unless each stopped block's pixels equal
+    ``render_accum_offset`` at that block's count bit for bit, and ``tol=0``
+    equals ``render_accum_offset`` at ADAPT_SPP."""
+    from dataclasses import replace
+
+    from polaris_tpu_torch.render.integrator import TorchRenderer
+    from polaris_tpu_torch.render.options import RenderOptions
+    from polaris_tpu_torch.render.shade import tonemap_reinhard
+
+    opt = RenderOptions(
+        width=FRAME, height=FRAME, spp=ADAPT_SPP, num_bounces=BOUNCES,
+        min_bounces_for_rr=RR_AFTER,
+    )
+    r = TorchRenderer(cornell, mode="auto")
+    r.spp_per_launch = ADAPT_CHUNK
+    kw = dict(tol=ADAPT_TOL, chunk=ADAPT_CHUNK)
+    r.render_adaptive(opt, **kw)  # warm-up: captures the chunk's graph
+    capture_s = r.capture_seconds
+    times = []
+    for _ in range(2):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        accum, spp_map = r.render_adaptive(opt, **kw)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        counts = read_launches()
+    closest = counts.get("K1", {}).get("closest_hit", 0)
+    if closest != r.last_trips_run:
+        fail(f"adaptive: {closest} closest-hit launches for {r.last_trips_run} passes")
+    blocks = r.last_spp_blocks
+
+    def tone(acc, weight):
+        return tonemap_reinhard(acc, weight, opt.exposure)
+
+    ref = tone(r.render_accum(replace(opt, spp=ADAPT_REF_SPP)), 1.0 / ADAPT_REF_SPP)
+    mse = float(((tone(accum, 1.0 / spp_map[..., None].float()) - ref) ** 2).mean())
+    fixed = {}
+    for c in sorted(int(c) for c in torch.unique(spp_map).cpu()):
+        fixed[c] = r.render_accum_offset(replace(opt, spp=c))
+        sel = spp_map == c
+        if not torch.equal(accum[sel], fixed[c][sel]):
+            fail(f"adaptive: the blocks stopped at {c} spp differ from a {c}-spp render")
+    uniform = fixed.get(ADAPT_SPP)
+    if uniform is None:
+        uniform = r.render_accum_offset(opt)
+    never, never_map = r.render_adaptive(opt, tol=0.0, chunk=ADAPT_CHUNK)
+    if not bool((never_map == ADAPT_SPP).all()) or not torch.equal(never, uniform):
+        fail(f"adaptive: tol=0 differs from a {ADAPT_SPP}-spp render_accum_offset")
+    emit(
+        "adaptive", card=smi, scene="cornell", frame=f"{FRAME}x{FRAME}",
+        cap_spp=ADAPT_SPP, chunk=ADAPT_CHUNK, tol=ADAPT_TOL,
+        frame_ms=min(times) * 1e3, frame_ms_all=[t * 1e3 for t in times],
+        capture_s=capture_s, mean_spp=float(spp_map.float().mean()),
+        blocks=int(blocks.size), blocks_stopped_share=float((blocks < ADAPT_SPP).mean()),
+        spp_counts={str(c): int((blocks == c).sum()) for c in np.unique(blocks)},
+        host_syncs_per_frame=r.last_host_syncs, launches=counts,
+        ref_spp=ADAPT_REF_SPP, mse_vs_ref=mse,
+        uniform_mse_vs_ref=float(((tone(uniform, 1.0 / ADAPT_SPP) - ref) ** 2).mean()),
+        stopped_blocks_equal=True, tol0_equal=True,
+    )
 
 
 def main() -> int:
@@ -1213,6 +1371,7 @@ def main() -> int:
         # around one frame of the flagship configuration per triangle test
         k1 = phase_configs(scenes, smi)
         launches["K1"] = launches["K1hh"] = k1
+        phase_adaptive(scenes["cornell"], smi)
     for e in entries.values():
         e["launches"] = launches[e["kernel"]][
             FAMILIES[e["kernel"]]["keys"][1 if e["any_hit"] else 0]

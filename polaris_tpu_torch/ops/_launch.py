@@ -113,7 +113,10 @@ def run_any(fn, scene_args: Sequence, o, d, maxt, active) -> torch.Tensor:
 # two counters per (device, stream) for the persistent kernels of
 # csrc/traverse_common.cuh (K1, K2, K3): the next ray to fetch, and the blocks
 # done; each launch's last block sets both back to 0, so launches that follow
-# each other on one stream share them
+# each other on one stream share them. A CUDA graph keeps the counters of the
+# stream it was captured on (made by a warm-up before the capture, outside the
+# graph's memory pool: render/graph.py), so graphs captured on one stream are
+# never replayed at the same time
 _COUNTERS: Dict = {}
 
 
@@ -148,3 +151,22 @@ def packed_pointers(P: Dict, spec, device):
             raise ValueError(f"{key}: empty")
         ptrs.append(P[key].data_ptr())
     return ptrs
+
+
+def launch_tables():
+    """The ``LAUNCHES`` table of every kernel module (K1, K5, K3, K4, K2), in
+    one fixed order: what a CUDA graph's capture reads to learn the launches
+    one replay makes."""
+    from . import (
+        intersect_cuda,
+        intersect_dense,
+        intersect_nodes,
+        intersect_wide8,
+        intersect_wide8_nodes,
+    )
+
+    return [
+        m.LAUNCHES
+        for m in (intersect_cuda, intersect_dense, intersect_nodes, intersect_wide8,
+                  intersect_wide8_nodes)
+    ]

@@ -33,17 +33,19 @@ def hash_u32(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def _as_u32(p, device) -> torch.Tensor:
-    """Tensor or Python int -> int64 tensor holding the value mod 2**32."""
+def _as_u32(p):
+    """Tensor -> int64 tensor holding the value mod 2**32; a Python int stays
+    a Python int (mod 2**32), which a tensor op takes as a scalar argument:
+    no host-to-device copy, so a draw can be captured into a CUDA graph."""
     if isinstance(p, torch.Tensor):
         return p.to(torch.int64) & _MASK
-    return torch.tensor(int(p) & _MASK, dtype=torch.int64, device=device)
+    return int(p) & _MASK
 
 
-def _fold(acc, parts, device) -> torch.Tensor:
+def _fold(acc, parts):
     """Mix further counters into a running u32 key (splitmix-style)."""
     for p in parts:
-        p = _as_u32(p, device)
+        p = _as_u32(p)
         if acc is None:
             acc = p
         else:
@@ -59,7 +61,10 @@ def _device_of(*parts):
 
 def combine(*parts) -> torch.Tensor:
     """Combine counters into one u32 key, splitmix-style sequential mixing."""
-    return hash_u32(_fold(None, parts, _device_of(*parts)))
+    key = hash_u32(_fold(None, parts))
+    if isinstance(key, torch.Tensor):
+        return key
+    return torch.tensor(key, dtype=torch.int64, device=_device_of(*parts))
 
 
 def _to_unit_float(bits: torch.Tensor) -> torch.Tensor:
@@ -74,9 +79,11 @@ def uniform(*parts) -> torch.Tensor:
 def make_uniform(seed, pixel_idx, sample_idx, bounce, rr_key=None):
     """Bind the per-draw counter layout into a stream closure.
 
-    Layout: uniform(seed, pixel, sample, bounce*64 + stream). ``bounce`` and
-    ``sample_idx`` may be Python ints or per-lane tensors (path
-    regeneration mixes bounce depths and sample indices in one pass).
+    Layout: uniform(seed, pixel, sample, bounce*64 + stream). ``seed``,
+    ``bounce`` and ``sample_idx`` may be Python ints, 0-d tensors (a captured
+    graph reads the seed and the sample index from device memory) or, the
+    last two, per-lane tensors (path regeneration mixes bounce depths and
+    sample indices in one pass).
 
     ``rr_key``: optional alternative key tensor for the STREAM_RR draw only —
     tile-coherent Russian roulette keys the survival uniform by 32x32 block
@@ -85,15 +92,14 @@ def make_uniform(seed, pixel_idx, sample_idx, bounce, rr_key=None):
     The mix of (seed, key, sample) is the same for every stream, so it is
     folded once per key and reused; a draw then costs one more mixing round.
     """
-    device = _device_of(pixel_idx, sample_idx, bounce)
     prefix = {}
 
     def U(stream):
         by_block = rr_key is not None and stream == STREAM_RR
         if by_block not in prefix:
             key = rr_key if by_block else pixel_idx
-            prefix[by_block] = _fold(None, (seed, key, sample_idx), device)
-        acc = _fold(prefix[by_block], (bounce * 64 + stream,), device)
+            prefix[by_block] = _fold(None, (seed, key, sample_idx))
+        acc = _fold(prefix[by_block], (bounce * 64 + stream,))
         return _to_unit_float(hash_u32(acc))
 
     return U

@@ -3,17 +3,23 @@
 Counterpart of the JAX package's ``render/integrator.py`` (itself the
 counterpart of the reference's host-driven pipeline,
 ``tracer/opencl/pipeline.go:94-213`` + ``tracer/opencl/tracer.go:194-247``).
-Everything runs eagerly on the renderer's device: raygen, traversal (the CUDA
-kernel on a card, the plain PyTorch traversal on the CPU), shading, NEE
-occlusion and accumulation are tensor ops over fixed-shape lanes, ray i <->
-pixel i throughout, so the accumulator update is a lanewise add (no scatter).
-The RNG is counter-based (ops/rng.py), which makes the image independent of
-lane order and of how the samples are chunked into launches.
+Raygen, traversal (the CUDA kernel on a card, the plain PyTorch traversal on
+the CPU), shading, NEE occlusion and accumulation are tensor ops over
+fixed-shape lanes, ray i <-> pixel i throughout, so the accumulator update
+is a lanewise add (no scatter). The RNG is counter-based (ops/rng.py), which
+makes the image independent of lane order and of how the samples are
+chunked into launches.
 
-This slice holds the sequential sample loop (``render_sample_block``),
-wavefront path regeneration (``render_block_regen``) and the renderer API
-around them. The forward path runs under ``torch.no_grad()``; traversal
-inputs are detached (hit geometry is non-differentiable by design).
+The loops exist twice over the same bodies. The eager functions
+(``render_sample_block``, ``render_block_regen`` over ``regen_start`` /
+``regen_trip``, ``render_blocked_eager``) launch every op on its own; the
+CPU, autograd and the reference checks run them. ``TorchRenderer`` runs one
+step of a loop as a function of static device tensors, replayed from a CUDA
+graph on a card (``render/graph.py``): the counterpart of the JAX package's
+compiled programs (``_get_render_fn``, ``_get_chunk_carry_fn``,
+``_get_finalize_fn``, ``_get_adaptive_fn``), and bit-equal to the eager
+loops. The forward path runs under ``torch.no_grad()``; traversal inputs are
+detached (hit geometry is non-differentiable by design).
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from ..ops.intersect import make_intersectors
 from ..ops.material import material_tree_depth
 from ..scene import as_scene_data, resolve_device, upload_scene
 from ..utils.log import Timer, get_logger
+from .graph import Step
 from .options import RenderOptions
 from .raygen import gen_rays
 from .shade import shade, shade_miss, tonemap_reinhard
@@ -38,6 +45,7 @@ from .shade import shade, shade_miss, tonemap_reinhard
 _log = get_logger("integrator")
 
 TILE_RAYS = 1024  # lanes per screen block (32x32 pixels)
+TILE_LANES = TILE_RAYS  # lanes per adaptive-sampling block: one screen block
 
 
 def blocked_pixel_order(width: int, height: int, block: int = 0):
@@ -187,6 +195,107 @@ def render_sample_block(
     return radiance
 
 
+def _primary(*, seed, frustum, eye, width, height, pixel_x, pixel_y, pixel_idx, s):
+    """Primary rays of sample(s) ``s`` of every lane."""
+    U0 = rng.make_uniform(seed, pixel_idx, s, 0)
+    return gen_rays(frustum, eye, width, height, pixel_x, pixel_y, U0)
+
+
+# the fields of the regeneration loop's carry (the JAX carry less its trip
+# counter, which the compiled driver keeps beside it)
+REGEN_FIELDS = ("ray_o", "ray_d", "throughput", "flags", "alive", "radiance", "s", "b")
+
+
+def regen_start(
+    *, frustum, eye, width, height, pixel_x, pixel_y, pixel_idx, sample_offset, seed,
+) -> Dict[str, torch.Tensor]:
+    """The regeneration loop's carry before its first trip: every lane alive
+    at bounce 0 of sample ``sample_offset`` (a Python int or a 0-d tensor)."""
+    n = pixel_idx.shape[0]
+    dev = pixel_idx.device
+    s = torch.zeros(n, dtype=torch.int64, device=dev) + sample_offset
+    ray_o, ray_d = _primary(
+        seed=seed, frustum=frustum, eye=eye, width=width, height=height,
+        pixel_x=pixel_x, pixel_y=pixel_y, pixel_idx=pixel_idx, s=s,
+    )
+    return {
+        "ray_o": ray_o,
+        "ray_d": ray_d,
+        "throughput": torch.ones((n, 3), dtype=torch.float32, device=dev),
+        "flags": torch.zeros(n, dtype=torch.int32, device=dev),
+        "alive": torch.ones(n, dtype=torch.bool, device=dev),
+        "radiance": torch.zeros((n, 3), dtype=torch.float32, device=dev),
+        "s": s,
+        "b": torch.zeros(n, dtype=torch.int64, device=dev),  # per-lane bounce
+    }
+
+
+def regen_trip(
+    S: Dict,
+    closest,
+    any_hit,
+    carry: Dict[str, torch.Tensor],
+    *,
+    s_end,
+    frustum,
+    eye,
+    width: int,
+    height: int,
+    pixel_x,
+    pixel_y,
+    pixel_idx,
+    seed,
+    num_bounces: int,
+    min_bounces_for_rr: int,
+    num_emissives: int,
+    scene_diffuse_mat: int,
+    material_depth: Optional[int] = None,
+    rr_tile_coherent: bool = False,
+) -> Dict[str, torch.Tensor]:
+    """One trip of the regeneration loop: one bounce of every live lane, and
+    a new path at the lane's next sample (below ``s_end``) for each path that
+    ended. Returns the new carry.
+
+    On a carry whose lanes are all dead it changes nothing that reaches the
+    image or the stop test: ``radiance`` gains exact zeros (never -0.0, as
+    it starts from +0.0), and ``alive``, ``s`` and ``b`` (0 once a lane dies)
+    keep their values. Only the dead lanes' rays and throughput move.
+    """
+    n = pixel_idx.shape[0]
+    ray_o, ray_d, throughput, flags, alive, radiance, s, b = (carry[k] for k in REGEN_FIELDS)
+    maxt = torch.full((n,), V.FLT_MAX, dtype=torch.float32, device=pixel_idx.device)
+    rr_key = rng.rr_block_key(pixel_idx, width) if rr_tile_coherent else None
+    U = rng.make_uniform(seed, pixel_idx, s, b, rr_key=rr_key)
+    radiance, out = _trace_bounce(
+        S, closest, any_hit,
+        ray_o=ray_o, ray_d=ray_d, maxt=maxt, alive=alive,
+        throughput=throughput, flags=flags, radiance=radiance, U=U,
+        bounce=b, is_primary=(b == 0)[..., None],
+        min_bounces_for_rr=min_bounces_for_rr,
+        num_emissives=num_emissives,
+        scene_diffuse_mat=scene_diffuse_mat,
+        material_depth=material_depth,
+    )
+    cont = alive & out["next_mask"] & (b + 1 < num_bounces)
+    regen = alive & (~cont) & (s + 1 < s_end)
+    s = torch.where(regen, s + 1, s)
+    o0, d0 = _primary(  # cheap vector math; where-selected below
+        seed=seed, frustum=frustum, eye=eye, width=width, height=height,
+        pixel_x=pixel_x, pixel_y=pixel_y, pixel_idx=pixel_idx, s=s,
+    )
+    regen3 = regen[..., None]
+    return {
+        "ray_o": torch.where(regen3, o0, out["next_o"]),
+        "ray_d": torch.where(regen3, d0, out["next_d"]),
+        "throughput": torch.where(regen3, 1.0, out["throughput"]),
+        "flags": torch.where(regen, 0, out["flags"]),
+        "alive": cont | regen,
+        "radiance": radiance,
+        "s": s,
+        "b": torch.where(cont, b + 1, 0),
+    }
+
+
 def render_block_regen(
     S: Dict,
     closest,
@@ -221,55 +330,176 @@ def render_block_regen(
     (contributions stream into one accumulator in per-lane chronological
     order instead of per-sample partial sums).
 
-    Runs until every lane exhausts its sample budget. The loop condition is
-    read back to the host once per trip (one device synchronisation each);
-    b strictly increases to the bounce cap and s strictly increases on every
-    regeneration, so trips <= spp * num_bounces. Returns (radiance, trips).
+    The eager loop: ``regen_trip`` until every lane exhausts its sample
+    budget, the loop condition read back to the host once per trip (one
+    device synchronisation each); b strictly increases to the bounce cap and
+    s strictly increases on every regeneration, so trips <= spp *
+    num_bounces. ``TorchRenderer`` runs the same trip from a CUDA graph.
+    Returns (radiance, trips).
     """
-    n = pixel_idx.shape[0]
-    dev = pixel_idx.device
-    maxt = torch.full((n,), V.FLT_MAX, dtype=torch.float32, device=dev)
-    s_end = sample_offset + spp
-
-    def primary(s_idx):
-        U0 = rng.make_uniform(seed, pixel_idx, s_idx, 0)
-        return gen_rays(frustum, eye, width, height, pixel_x, pixel_y, U0)
-
-    s = torch.full((n,), int(sample_offset), dtype=torch.int64, device=dev)
-    ray_o, ray_d = primary(s)
-    throughput = torch.ones((n, 3), dtype=torch.float32, device=dev)
-    flags = torch.zeros(n, dtype=torch.int32, device=dev)
-    alive = torch.ones(n, dtype=torch.bool, device=dev)
-    radiance = torch.zeros((n, 3), dtype=torch.float32, device=dev)
-    b = torch.zeros(n, dtype=torch.int64, device=dev)  # per-lane bounce
-    rr_key = rng.rr_block_key(pixel_idx, width) if rr_tile_coherent else None
+    frame = dict(
+        frustum=frustum, eye=eye, width=width, height=height, pixel_x=pixel_x,
+        pixel_y=pixel_y, pixel_idx=pixel_idx, seed=seed,
+    )
+    carry = regen_start(sample_offset=sample_offset, **frame)
     trips = 0
-
-    while bool(alive.any()):
-        U = rng.make_uniform(seed, pixel_idx, s, b, rr_key=rr_key)
-        radiance, out = _trace_bounce(
-            S, closest, any_hit,
-            ray_o=ray_o, ray_d=ray_d, maxt=maxt, alive=alive,
-            throughput=throughput, flags=flags, radiance=radiance, U=U,
-            bounce=b, is_primary=(b == 0)[..., None],
-            min_bounces_for_rr=min_bounces_for_rr,
-            num_emissives=num_emissives,
-            scene_diffuse_mat=scene_diffuse_mat,
-            material_depth=material_depth,
+    while bool(carry["alive"].any()):
+        carry = regen_trip(
+            S, closest, any_hit, carry, s_end=sample_offset + spp, **frame,
+            num_bounces=num_bounces, min_bounces_for_rr=min_bounces_for_rr,
+            num_emissives=num_emissives, scene_diffuse_mat=scene_diffuse_mat,
+            material_depth=material_depth, rr_tile_coherent=rr_tile_coherent,
         )
-        cont = alive & out["next_mask"] & (b + 1 < num_bounces)
-        regen = alive & (~cont) & (s + 1 < s_end)
-        s = torch.where(regen, s + 1, s)
-        o0, d0 = primary(s)  # cheap vector math; where-selected below
-        regen3 = regen[..., None]
-        ray_o = torch.where(regen3, o0, out["next_o"])
-        ray_d = torch.where(regen3, d0, out["next_d"])
-        throughput = torch.where(regen3, 1.0, out["throughput"])
-        flags = torch.where(regen, 0, out["flags"])
-        b = torch.where(cont, b + 1, 0)
-        alive = cont | regen
         trips += 1
-    return radiance, trips
+    return carry["radiance"], trips
+
+
+class _Program:
+    """The static tensors of one frame shape and the steps of one loop over
+    them. The host fills the inputs (seed, camera, sample offset) before a
+    launch; the steps read them from device memory."""
+
+    def __init__(self, r: "TorchRenderer", opt: RenderOptions):
+        W, H = opt.width, opt.height
+        xs, ys, pix, _ = r._pixel_order(W, H)
+        dev = r.device
+        self.r = r
+        self.n = W * H
+        self.seed = torch.zeros((), dtype=torch.int64, device=dev)
+        self.offset = torch.zeros((), dtype=torch.int64, device=dev)
+        self.frustum = torch.zeros((4, 3), dtype=torch.float32, device=dev)
+        self.eye = torch.zeros(3, dtype=torch.float32, device=dev)
+        self.frame = dict(
+            frustum=self.frustum, eye=self.eye, width=W, height=H, pixel_x=xs,
+            pixel_y=ys, pixel_idx=pix, seed=self.seed,
+        )
+        self.common = dict(
+            self.frame,
+            num_bounces=opt.num_bounces,
+            min_bounces_for_rr=opt.min_bounces_for_rr,
+            num_emissives=r.num_emissives,
+            scene_diffuse_mat=r.scene_diffuse_mat,
+            material_depth=r.material_depth,
+            rr_tile_coherent=opt.rr_tile_coherent,
+        )
+        self.steps = []
+
+    def step(self, fn) -> Step:
+        s = Step(fn, self.r.device, self.r._stream, self.r._pool)
+        self.steps.append(s)
+        return s
+
+    def set(self, seed: int, frustum, eye, sample_offset: int) -> None:
+        self.seed.fill_(int(seed) & 0xFFFFFFFF)
+        self.frustum.copy_(frustum)
+        self.eye.copy_(eye)
+        self.offset.fill_(int(sample_offset))
+
+
+class _RegenProgram(_Program):
+    """Path regeneration (``regen_start``, ``regen_trip``) over a static
+    carry, with a trip counter that counts on the device, and only while a
+    lane is alive: trips that run after the last lane died (overshoot)
+    leave the counter as they leave ``radiance``, ``alive``, ``s`` and
+    ``b``."""
+
+    def __init__(self, r, opt, chunk: int):
+        super().__init__(r, opt)
+        self.s_end = torch.zeros((), dtype=torch.int64, device=r.device)
+        self.carry = regen_start(sample_offset=0, **self.frame)
+        self.trips = torch.zeros((), dtype=torch.int64, device=r.device)
+
+        def start():
+            for k, v in regen_start(sample_offset=self.offset, **self.frame).items():
+                self.carry[k].copy_(v)
+            self.trips.zero_()
+
+        def trip():
+            live = self.carry["alive"].any()
+            new = regen_trip(
+                r.S, r.closest, r.any_hit, self.carry, s_end=self.s_end, **self.common
+            )
+            for k, v in new.items():
+                self.carry[k].copy_(v)
+            self.trips.add_(live)
+
+        self.start = self.step(start)
+        self.trip = self.step(trip)
+
+
+class _SampleProgram(_Program):
+    """The sequential sample loop: one step is one sample of every lane
+    (``render_sample_block``, ``num_bounces`` passes), added to a partial
+    summed from zero, and the sample index moved on, on the device."""
+
+    def __init__(self, r, opt, chunk: int):
+        super().__init__(r, opt)
+        self.part = torch.zeros((self.n, 3), dtype=torch.float32, device=r.device)
+
+        def sample():
+            self.part.add_(
+                render_sample_block(
+                    r.S, r.closest, r.any_hit, sample_idx=self.offset,
+                    closest_bounce=r.closest_bounce, **self.common,
+                )
+            )
+            self.offset.add_(1)
+
+        self.sample = self.step(sample)
+
+
+class _AdaptiveProgram(_Program):
+    """One chunk of ``chunk`` samples of adaptive sampling as one step: the
+    blocks still drawing samples (``block_active``) trace, the stopped
+    blocks' lanes start dead, and the luminance sums and each block's
+    confidence interval are formed on the device. ``accum``, ``lsum`` and
+    ``l2sum`` are the frame's carry, shared by the programs of every chunk
+    size of this frame shape."""
+
+    def __init__(self, r, opt, chunk: int):
+        super().__init__(r, opt)
+        n, dev = self.n, r.device
+        nblocks = -(-n // TILE_LANES)
+        pad = nblocks * TILE_LANES - n
+        lane_block = torch.clamp(
+            torch.arange(n, device=dev) // TILE_LANES, max=nblocks - 1
+        )
+        # divide by each block's REAL lane count: the zero-padded tail block
+        # would otherwise under-read its CI and stop too early
+        lanes_per_block = torch.from_numpy(
+            np.minimum(TILE_LANES, n - np.arange(nblocks) * TILE_LANES).astype(np.float32)
+        ).to(dev)
+        self.block_active = torch.zeros(nblocks, dtype=torch.bool, device=dev)
+        self.block_spp = torch.zeros(nblocks, dtype=torch.float32, device=dev)
+        self.block_ci = torch.zeros(nblocks, dtype=torch.float32, device=dev)
+        self.accum, self.lsum, self.l2sum = r._adaptive_carry(opt.width, opt.height)
+
+        def run_chunk():
+            act = self.block_active[lane_block]
+            for s in range(chunk):
+                rad = render_sample_block(
+                    r.S, r.closest, r.any_hit, sample_idx=self.offset + s,
+                    closest_bounce=r.closest_bounce, active_init=act, **self.common,
+                )
+                lum = V.luminance(rad)
+                self.accum.add_(rad)
+                self.lsum.add_(lum)
+                self.l2sum.add_(lum * lum)
+            # per-block convergence stat: 95% CI of the mean per-sample
+            # luminance, relative to the mean (the 0.05 floor keeps black
+            # and near-black blocks from never converging), averaged over
+            # the block's pixels
+            ns = torch.clamp(self.block_spp[lane_block], min=1.0)
+            mean = self.lsum / ns
+            var = torch.clamp(self.l2sum / ns - mean * mean, min=0.0)
+            ci = 1.96 * torch.sqrt(var / ns) / (mean + 0.05)
+            ci = torch.nn.functional.pad(ci, (0, pad))
+            self.block_ci.copy_(ci.reshape(nblocks, TILE_LANES).sum(dim=1) / lanes_per_block)
+
+        self.run_chunk = self.step(run_chunk)
+
+
+_LOOPS = {"regen": _RegenProgram, "sequential": _SampleProgram, "adaptive": _AdaptiveProgram}
 
 
 class TorchRenderer:
@@ -279,16 +509,35 @@ class TorchRenderer:
     the CPU is used only on request (``device="cpu"``). ``mode`` selects the
     traversal backend (``ops/intersect.py::make_intersectors`` lists the
     modes) and ``tri_test`` the binary kernel's triangle test (``"mt"`` or
-    ``"hh"``; ``None`` reads ``POLARIS_TRI_TEST``); ``regen`` switches the sample loop to wavefront path
-    regeneration. A mode that peels the bounces after the first onto another
-    kernel ('hybrid') cannot regenerate, because regeneration mixes bounce
-    depths in one pass: the renderer then warns and takes the sequential
-    sample loop.
+    ``"hh"``; ``None`` reads ``POLARIS_TRI_TEST``); ``regen`` switches the
+    sample loop to wavefront path regeneration. A mode that peels the
+    bounces after the first onto another kernel ('hybrid') cannot
+    regenerate, because regeneration mixes bounce depths in one pass: the
+    renderer then warns and takes the sequential sample loop.
+
+    Every frame runs as compiled launches, the counterpart of the JAX
+    package's programs: one step of the loop (a regeneration trip, a sample
+    of the sequential loop, a chunk of adaptive sampling) is a function of
+    static device tensors, called on the CPU and replayed from a CUDA graph
+    on a card (``render/graph.py``); the regeneration loop reads its stop
+    test once every ``num_bounces`` trips; a chunk's partial is added to a
+    device accumulator in blocked lane order, and one finalize restores
+    pixel order, tonemaps and quantizes. Graphs are kept per (width, height,
+    chunk spp, bounces, RR threshold, tile-coherent RR, loop), and are
+    captured by a frame's first launch of that shape.
+
+    A captured graph reads the scene tensors ``self.S`` (and the packed
+    buffers of the traversal kernels) by address: it stays valid only while
+    they keep their storage. Update them in place, or drop the graphs
+    (``self._programs.clear()``).
+
+    The eager loop functions (``render_sample_block``, ``render_block_regen``,
+    ``render_blocked_eager``) stay the reference the graphs are held against.
     """
 
     # samples per launch of the sample loop: bounds the work queued between
-    # two host-side accumulator updates, and is the unit progressive
-    # accumulation advances by
+    # two accumulator updates, and is the unit progressive accumulation
+    # advances by
     spp_per_launch = 8
 
     def __init__(
@@ -296,6 +545,12 @@ class TorchRenderer:
         tri_test: Optional[str] = None,
     ):
         self.device = resolve_device(device)
+        if mode == "bvh" and self.device.type == "cuda":
+            raise ValueError(
+                "mode 'bvh' is the plain PyTorch traversal, which reads its "
+                "loop condition back to the host and cannot be captured into "
+                "a CUDA graph; on a card use a kernel mode ('auto')"
+            )
         self.scene = as_scene_data(scene)
         self.regen = regen
         self.S = upload_scene(self.scene, self.device)
@@ -312,9 +567,19 @@ class TorchRenderer:
         self.material_depth = material_tree_depth(
             self.scene.mat_type, self.scene.mat_left, self.scene.mat_right
         )
-        self.last_render_ms = 0.0
-        self.last_trips = 0
+        cuda = self.device.type == "cuda"
+        self._stream = torch.cuda.Stream(self.device) if cuda else None
+        self._pool = torch.cuda.graph_pool_handle() if cuda else None
+        self._programs: Dict = {}
         self._order_cache: Dict = {}
+        self._carry_cache: Dict = {}
+        self.last_render_ms = 0.0
+        # the last frame's loop: trips that had a live lane (the eager
+        # loop's count), trips run (overshoot included: one closest-hit
+        # launch each) and reads of a device value by the host
+        self.last_trips = 0
+        self.last_trips_run = 0
+        self.last_host_syncs = 0
 
     # ----- plumbing -----
 
@@ -333,6 +598,28 @@ class TorchRenderer:
             )
         return self._order_cache[key]
 
+    def _adaptive_carry(self, W: int, H: int):
+        """The adaptive loop's device carry for a frame shape: accumulator,
+        luminance sum and sum of squares, in blocked lane order."""
+        if (W, H) not in self._carry_cache:
+            n, f32 = W * H, dict(dtype=torch.float32, device=self.device)
+            self._carry_cache[W, H] = (
+                torch.zeros((n, 3), **f32), torch.zeros(n, **f32), torch.zeros(n, **f32)
+            )
+        return self._carry_cache[W, H]
+
+    def _program(self, opt: RenderOptions, chunk: int, loop: str) -> _Program:
+        key = (opt.width, opt.height, chunk, opt.num_bounces, opt.min_bounces_for_rr,
+               opt.rr_tile_coherent, loop)
+        if key not in self._programs:
+            self._programs[key] = _LOOPS[loop](self, opt, chunk)
+        return self._programs[key]
+
+    @property
+    def capture_seconds(self) -> float:
+        """Seconds spent capturing this renderer's graphs (outside replays)."""
+        return sum(s.capture_seconds for p in self._programs.values() for s in p.steps)
+
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -344,70 +631,77 @@ class TorchRenderer:
         return frustum, eye
 
     def _block_partial(self, opt: RenderOptions, frustum, eye, sample_offset: int):
-        """Sum of ``opt.spp`` samples' radiance in BLOCKED lane order — the
-        single implementation behind one-launch and chunked renders.
-        Dispatches to wavefront regeneration or the sequential sample loop;
-        the partial is summed from zero."""
-        W, H = opt.width, opt.height
-        xs, ys, pix, _ = self._pixel_order(W, H)
-        common = dict(
-            frustum=frustum,
-            eye=eye,
-            width=W,
-            height=H,
-            pixel_x=xs,
-            pixel_y=ys,
-            pixel_idx=pix,
-            seed=int(opt.seed),
-            num_bounces=opt.num_bounces,
-            min_bounces_for_rr=opt.min_bounces_for_rr,
-            num_emissives=self.num_emissives,
-            scene_diffuse_mat=self.scene_diffuse_mat,
-            material_depth=self.material_depth,
-            rr_tile_coherent=opt.rr_tile_coherent,
-        )
+        """Sum of ``opt.spp`` samples' radiance in BLOCKED lane order, summed
+        from zero, through the regeneration loop or the sequential sample
+        loop. Returns a static buffer of the loop's program: the next launch
+        of that shape overwrites it."""
         if self.regen:
-            part, trips = render_block_regen(
-                self.S, self.closest, self.any_hit,
-                sample_offset=sample_offset, spp=opt.spp, **common,
-            )
-            self.last_trips += trips
-            return part
-        accum = torch.zeros((W * H, 3), dtype=torch.float32, device=self.device)
-        for s in range(opt.spp):
-            accum = accum + render_sample_block(
-                self.S, self.closest, self.any_hit,
-                sample_idx=sample_offset + s,
-                closest_bounce=self.closest_bounce, **common,
-            )
+            prog = self._program(opt, opt.spp, "regen")
+            prog.set(opt.seed, frustum, eye, sample_offset)
+            prog.s_end.fill_(int(sample_offset) + opt.spp)
+            prog.start()
+            # a path ends within num_bounces trips, so the stop test is read
+            # once every num_bounces trips: at most num_bounces - 1 trips
+            # run after the last lane died
+            k = opt.num_bounces
+            while True:
+                for _ in range(k):
+                    prog.trip()
+                self.last_trips_run += k
+                self.last_host_syncs += 1
+                if not bool(prog.carry["alive"].any()):
+                    break
+            self._trips.add_(prog.trips)
+            return prog.carry["radiance"]
+        prog = self._program(opt, opt.spp, "sequential")
+        prog.set(opt.seed, frustum, eye, sample_offset)
+        prog.part.zero_()
+        for _ in range(opt.spp):
+            prog.sample()
         self.last_trips += opt.spp * opt.num_bounces
-        return accum
+        self.last_trips_run += opt.spp * opt.num_bounces
+        return prog.part
 
-    def _render_accum_blocked(self, opt: RenderOptions, camera, sample_offset: int = 0):
-        """Render opt.spp samples in spp_per_launch chunks into a device
-        accumulator in blocked lane order. Each chunk's partial is summed
-        from zero and then added — (chunk0)+(chunk1)+... — so the float
-        association does not depend on anything but the chunk size."""
+    def _render_blocked(self, opt: RenderOptions, camera, sample_offset: int, chunked: bool):
+        """One frame's accumulator in blocked lane order: ``opt.spp`` samples
+        from ``sample_offset`` as one partial, or, when ``chunked`` and
+        ``opt.spp > spp_per_launch``, in ``spp_per_launch`` chunks whose
+        partials are added to a device accumulator — (chunk0)+(chunk1)+...,
+        the association of the JAX package's chunk carry."""
         frustum, eye = self._camera_tensors(opt, camera)
-        n = opt.width * opt.height
-        accum = torch.zeros((n, 3), dtype=torch.float32, device=self.device)
-        self.last_trips = 0
+        self._trips = torch.zeros((), dtype=torch.int64, device=self.device)
+        self.last_trips = self.last_trips_run = self.last_host_syncs = 0
+        if not chunked or opt.spp <= self.spp_per_launch:
+            return self._block_partial(opt, frustum, eye, sample_offset)
+        accum = torch.zeros((opt.width * opt.height, 3), dtype=torch.float32, device=self.device)
         done = 0
         while done < opt.spp:
             chunk = min(self.spp_per_launch, opt.spp - done)
-            part = self._block_partial(
-                replace(opt, spp=chunk), frustum, eye, sample_offset + done
+            accum.add_(
+                self._block_partial(replace(opt, spp=chunk), frustum, eye, sample_offset + done)
             )
-            accum = accum + part
             done += chunk
         return accum
 
-    def _unblock(self, accum, opt: RenderOptions):
-        """Restore pixel order from blocked lane order: [H, W, 3]."""
+    def _end_frame(self):
+        """Read the regeneration loop's trip count, once a frame (the
+        sequential loop's is known on the host)."""
+        if self.regen:
+            self.last_trips = int(self._trips)
+            self.last_host_syncs += 1
+
+    def finalize(self, accum, opt: RenderOptions, emit: str = "f32"):
+        """Close a frame: restore pixel order from blocked lane order (one
+        gather) and, for ``emit="u8"``, tonemap with the weight 1/spp times
+        the exposure (one float32 product) and quantize. Returns a new
+        [H, W, 3] tensor on the device."""
         inv = self._pixel_order(opt.width, opt.height)[3]
-        if inv is not None:
-            accum = accum[inv]
-        return accum.reshape(opt.height, opt.width, 3)
+        a = (accum[inv] if inv is not None else accum.clone()).reshape(opt.height, opt.width, 3)
+        if emit == "f32":
+            return a
+        scale = float(np.float32(1.0 / opt.spp) * np.float32(opt.exposure))
+        img = tonemap_reinhard(a, scale, 1.0)
+        return (torch.clamp(img, 0.0, 1.0) * 255.0).to(torch.uint8)
 
     # ----- public API -----
 
@@ -418,21 +712,27 @@ class TorchRenderer:
         camera: Optional[Camera] = None,
         sample_offset: int = 0,
     ) -> torch.Tensor:
-        """Render opt.spp samples starting at an absolute sample index
-        (progressive accumulation); returns the f32 accumulator [H, W, 3]
-        on the renderer's device."""
+        """Render opt.spp samples starting at an absolute sample index, as one
+        partial (progressive accumulation); returns the f32 accumulator
+        [H, W, 3] on the renderer's device."""
         with Timer() as t:
-            out = self._unblock(
-                self._render_accum_blocked(opt, camera, sample_offset), opt
-            )
-            self._sync()
+            out = self.finalize(self._render_blocked(opt, camera, sample_offset, False), opt)
+            self._end_frame()
         self.last_render_ms = t.ms
         return out
 
+    @torch.no_grad()
     def render_accum(
         self, opt: RenderOptions, camera: Optional[Camera] = None
     ) -> torch.Tensor:
-        return self.render_accum_offset(opt, camera, sample_offset=0)
+        """Render opt.spp samples from sample 0, in chunks of
+        ``spp_per_launch`` when there are more; returns the f32 accumulator
+        [H, W, 3] on the renderer's device."""
+        with Timer() as t:
+            out = self.finalize(self._render_blocked(opt, camera, 0, True), opt)
+            self._end_frame()
+        self.last_render_ms = t.ms
+        return out
 
     @torch.no_grad()
     def render(self, opt: RenderOptions, camera: Optional[Camera] = None):
@@ -447,10 +747,131 @@ class TorchRenderer:
         on the host. The timed span covers render, tonemap, quantize and the
         fetch of the u8 image."""
         with Timer() as t:
-            accum = self._unblock(self._render_accum_blocked(opt, camera), opt)
-            # sample weight x exposure as one float32 product
-            scale = float(np.float32(1.0 / opt.spp) * np.float32(opt.exposure))
-            img = tonemap_reinhard(accum, scale, 1.0)
-            out = (torch.clamp(img, 0.0, 1.0) * 255.0).to(torch.uint8).cpu().numpy()
+            img = self.finalize(self._render_blocked(opt, camera, 0, True), opt, "u8")
+            out = img.cpu().numpy()
+            self._end_frame()
         self.last_render_ms = t.ms
         return out
+
+    # ----- adaptive per-block sampling -----
+    #
+    # Whole 32x32 screen blocks stop drawing samples once their per-pixel
+    # variance says they converged; a stopped block's lanes start dead, and
+    # the traversal kernels write inactive rays without tracing them. The
+    # RNG's absolute sample indices make the result reproducible: a block
+    # that stopped at n samples holds exactly the accumulator a fixed
+    # n-sample render (one partial) would produce.
+
+    @torch.no_grad()
+    def render_adaptive(
+        self,
+        opt: RenderOptions,
+        camera: Optional[Camera] = None,
+        *,
+        tol: float = 0.02,
+        chunk: int = 0,
+        min_spp: int = 0,
+    ):
+        """Variance-driven adaptive render on the sequential sample loop.
+        ``opt.spp`` is the per-pixel budget CAP; blocks stop early once
+        converged (95% CI of mean luminance below ``tol`` relative), checked
+        from ``min_spp`` samples on (default: two chunks). Returns
+        ``(accum [H,W,3] f32, spp_map [H,W] int32)``, tensors on the
+        renderer's device — divide per pixel to get the image."""
+        W, H = opt.width, opt.height
+        n = W * H
+        nblocks = -(-n // TILE_LANES)
+        chunk = chunk or min(self.spp_per_launch, opt.spp)
+        min_spp = min_spp or min(2 * chunk, opt.spp)
+        frustum, eye = self._camera_tensors(opt, camera)
+        accum, lsum, l2sum = self._adaptive_carry(W, H)
+        block_active = np.ones(nblocks, bool)
+        block_spp = np.zeros(nblocks, np.int32)
+        done = 0
+        self.last_trips_run = self.last_host_syncs = 0
+        with Timer() as t:
+            accum.zero_()
+            lsum.zero_()
+            l2sum.zero_()
+            while done < opt.spp and block_active.any():
+                k = min(chunk, opt.spp - done)  # never exceed the budget cap
+                prog = self._program(opt, k, "adaptive")
+                block_spp_new = block_spp + np.where(block_active, k, 0)
+                prog.set(opt.seed, frustum, eye, done)
+                prog.block_active.copy_(torch.from_numpy(block_active))
+                prog.block_spp.copy_(torch.from_numpy(block_spp_new.astype(np.float32)))
+                prog.run_chunk()
+                block_ci = prog.block_ci.cpu().numpy()  # the one host read a chunk
+                self.last_host_syncs += 1
+                self.last_trips_run += k * opt.num_bounces
+                block_spp = block_spp_new
+                done += k
+                if done >= min_spp:
+                    # >= keeps tol=0 a true "never converge" mode: a
+                    # zero-variance block (ci exactly 0) must not stop
+                    block_active &= block_ci >= tol
+            out = self.finalize(accum, opt)
+            self._sync()
+        self.last_render_ms = t.ms
+        self.last_trips = self.last_trips_run
+        self.last_spp_blocks = block_spp
+        lane_block = np.minimum(np.arange(n, dtype=np.int64) // TILE_LANES, nblocks - 1)
+        h_inv = blocked_pixel_order(W, H)[3]
+        spp_map = block_spp[lane_block][h_inv].reshape(H, W).astype(np.int32)
+        return out, torch.from_numpy(spp_map).to(self.device)
+
+    @torch.no_grad()
+    def render_adaptive_u8(self, opt: RenderOptions, camera: Optional[Camera] = None, **kw):
+        """``render_adaptive``, each pixel weighted by 1/its sample count,
+        tonemapped and rounded to u8 (``+0.5``) on the device; returns
+        ``(image [H,W,3] uint8, spp_map [H,W] int32)`` as numpy arrays."""
+        accum, spp_map = self.render_adaptive(opt, camera, **kw)
+        weight = 1.0 / spp_map[..., None].to(torch.float32)
+        img = tonemap_reinhard(accum, weight, opt.exposure)
+        u8 = (torch.clamp(img, 0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
+        return u8.cpu().numpy(), spp_map.cpu().numpy()
+
+
+@torch.no_grad()
+def render_blocked_eager(r: TorchRenderer, opt: RenderOptions, camera: Optional[Camera] = None):
+    """``r``'s ``render_accum`` / ``render_u8`` frame through the eager loop
+    functions, every op launched on its own and the regeneration loop's stop
+    test read every trip: the same samples, chunks and additions as ``r``'s
+    compiled driver. The reference that driver is held against, bit for
+    bit, and the eager baseline of its time. Returns (accumulator in blocked
+    lane order, trips); ``r.finalize`` closes it."""
+    frustum, eye = r._camera_tensors(opt, camera)
+    xs, ys, pix, _ = r._pixel_order(opt.width, opt.height)
+    common = dict(
+        frustum=frustum, eye=eye, width=opt.width, height=opt.height, pixel_x=xs,
+        pixel_y=ys, pixel_idx=pix, seed=int(opt.seed), num_bounces=opt.num_bounces,
+        min_bounces_for_rr=opt.min_bounces_for_rr, num_emissives=r.num_emissives,
+        scene_diffuse_mat=r.scene_diffuse_mat, material_depth=r.material_depth,
+        rr_tile_coherent=opt.rr_tile_coherent,
+    )
+    n = opt.width * opt.height
+
+    def partial(offset: int, spp: int):
+        if r.regen:
+            return render_block_regen(
+                r.S, r.closest, r.any_hit, sample_offset=offset, spp=spp, **common
+            )
+        part = torch.zeros((n, 3), dtype=torch.float32, device=r.device)
+        for s in range(spp):
+            part = part + render_sample_block(
+                r.S, r.closest, r.any_hit, sample_idx=offset + s,
+                closest_bounce=r.closest_bounce, **common,
+            )
+        return part, spp * opt.num_bounces
+
+    if opt.spp <= r.spp_per_launch:
+        return partial(0, opt.spp)
+    accum = torch.zeros((n, 3), dtype=torch.float32, device=r.device)
+    trips = done = 0
+    while done < opt.spp:
+        chunk = min(r.spp_per_launch, opt.spp - done)
+        part, t = partial(done, chunk)
+        accum = accum + part
+        trips += t
+        done += chunk
+    return accum, trips

@@ -13,19 +13,26 @@ samples (a frame of 256 spp under the profiler is over a million device
 kernels). ``--scene terrain819k`` renders the big-scene frame instead (the
 procedural terrain at grid 640, 512x512, 4 spp, 3 bounces, RR after 4,
 sequential sample loop, ``spp_per_launch=1``) through the traversal mode given
-by ``--mode`` (``pallas8_nodes`` or ``pallas_nodes``). Prints one JSON object:
+by ``--mode`` (``pallas8_nodes`` or ``pallas_nodes``). The renderer replays
+each step of its loop from a CUDA graph; the eager baseline is the same frame
+through the eager loop functions (``render_blocked_eager``). Prints one JSON
+object:
 
-  frame       best-of-3 frame ms and the trips of the sample loop
-  profile     one frame under torch.profiler: wall ms, summed device-kernel
-              ms, kernels launched, device busy share, the heaviest kernels
-  layers      one frame with a device synchronisation around every layer
-              (raygen, closest hit, shade, any hit): serialised ms per layer,
-              calls, and what is left for RNG and loop bookkeeping; and, in a
-              second such frame, the atlas fetches inside shade
+  frame       best-of-3 frame ms through the graphs and through the eager
+              loops, the trips of the sample loop (with a live lane, and
+              run: overshoot included), graph replays and host syncs a
+              frame, seconds spent capturing the graphs
+  profile     one graph frame under torch.profiler: wall ms, summed
+              device-kernel ms, kernels run, device busy share, the heaviest
+              kernels
+  profile_eager  the same for one eager frame
+  layers      one eager frame with a device synchronisation around every
+              layer (raygen, closest hit, shade, any hit): serialised ms per
+              layer, calls, and what is left for RNG and loop bookkeeping;
+              and, in a second such frame, the atlas fetches inside shade
               (``texture_fetch``: every call of the sampler's corner gather)
-  loop_sync   latency of the loop condition ``bool(alive.any())`` on an idle
-              device, and that latency times the frame's trips (regeneration
-              loop only; null for the sequential loop, which reads nothing back)
+  loop_sync   latency of the stop test ``bool(alive.any())`` on an idle
+              device, and that latency times the graph frame's host syncs
 
 Needs a CUDA device and nvcc (a traversal kernel is built at first use);
 without a CUDA device it exits non-zero. Every number is measured on the card
@@ -73,13 +80,32 @@ def _timed_frame(renderer, opt) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
-def measure_profile(renderer, opt) -> dict:
+def _eager_frame(renderer, opt):
+    """The same frame through the eager loop functions; returns its trips."""
+    from polaris_tpu_torch.render.integrator import render_blocked_eager
+
+    accum, trips = render_blocked_eager(renderer, opt)
+    renderer.finalize(accum, opt, "u8").cpu()
+    return trips
+
+
+def _timed_eager_frame(renderer, opt) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _eager_frame(renderer, opt)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def measure_profile(frame, trips: int) -> dict:
+    """One call of ``frame`` under torch.profiler (a graph replay's kernels
+    are traced one by one, as the eager ones)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        renderer.render_u8(opt)
+        frame()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events() if str(e.device_type).endswith("CUDA")]
@@ -100,7 +126,7 @@ def measure_profile(renderer, opt) -> dict:
         "device_ms": device_ms,
         "device_busy_share": device_ms / wall_ms,
         "kernels_launched": len(kernels),
-        "kernels_per_trip": len(kernels) / max(renderer.last_trips, 1),
+        "kernels_per_trip": len(kernels) / max(trips, 1),
         "top_kernels": [
             {"name": k[:80], "ms": v[0], "launches": v[1]} for k, v in top
         ],
@@ -108,7 +134,7 @@ def measure_profile(renderer, opt) -> dict:
 
 
 def measure_layers(renderer, opt) -> dict:
-    """One frame with every layer fenced by device synchronisations."""
+    """One eager frame with every layer fenced by device synchronisations."""
     from polaris_tpu_torch.render import integrator
 
     spent = {"raygen": [0.0, 0], "closest_hit": [0.0, 0], "shade": [0.0, 0],
@@ -132,7 +158,7 @@ def measure_layers(renderer, opt) -> dict:
     renderer.closest = fenced("closest_hit", saved[2])
     renderer.any_hit = fenced("any_hit", saved[3])
     try:
-        total = _timed_frame(renderer, opt)
+        total = _timed_eager_frame(renderer, opt)
     finally:
         integrator.gen_rays, integrator.shade, renderer.closest, renderer.any_hit = saved
     layers = {k: {"ms": v[0], "calls": v[1]} for k, v in spent.items()}
@@ -147,7 +173,7 @@ def measure_layers(renderer, opt) -> dict:
     saved_fetch = texture._corners
     texture._corners = fenced("texture_fetch", saved_fetch)
     try:
-        fetch_frame = _timed_frame(renderer, opt)
+        fetch_frame = _timed_eager_frame(renderer, opt)
     finally:
         texture._corners = saved_fetch
     layers["texture_fetch"] = {
@@ -157,15 +183,16 @@ def measure_layers(renderer, opt) -> dict:
     return layers
 
 
-def measure_loop_sync(n: int, trips: int, reps: int = 200) -> dict:
+def measure_loop_sync(n: int, syncs: int, reps: int = 200) -> dict:
     alive = torch.ones(n, dtype=torch.bool, device="cuda")
     bool(alive.any())
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(reps):
         bool(alive.any())
-    per_trip = (time.perf_counter() - t0) * 1e3 / reps
-    return {"ms_per_trip_idle_device": per_trip, "ms_per_frame": per_trip * trips}
+    per_sync = (time.perf_counter() - t0) * 1e3 / reps
+    return {"ms_per_sync_idle_device": per_sync, "host_syncs_per_frame": syncs,
+            "ms_per_frame": per_sync * syncs}
 
 
 def main() -> int:
@@ -200,15 +227,23 @@ def main() -> int:
         width=frame, height=frame, spp=spp, num_bounces=bounces,
         min_bounces_for_rr=rr_after,
     )
-    renderer.render_u8(opt)  # warm-up: builds and loads the kernel
+    renderer.render_u8(opt)  # warm-up: builds the kernel, captures the graphs
     frames = [_timed_frame(renderer, opt) for _ in range(3)]
     frame_ms = min(frames)
-    trips = renderer.last_trips
-    profile = measure_profile(renderer, opt)
-    if isinstance(profile.get("device_ms"), float):
-        # the profiler inflates the wall time many times over: the busy share
-        # that means something is device time over the unprofiled frame
-        profile["device_busy_share_of_unprofiled_frame"] = profile["device_ms"] / frame_ms
+    trips, trips_run = renderer.last_trips, renderer.last_trips_run
+    syncs = renderer.last_host_syncs
+    # regeneration: one replay a trip and one a chunk (its start); the
+    # sequential loop: one a sample
+    replays = trips_run + -(-spp // per_launch) if renderer.regen else spp
+    eager = [_timed_eager_frame(renderer, opt) for _ in range(3)]
+    eager_trips = _eager_frame(renderer, opt)
+    profile = measure_profile(lambda: renderer.render_u8(opt), trips_run)
+    profile_eager = measure_profile(lambda: _eager_frame(renderer, opt), eager_trips)
+    for prof, best in ((profile, frame_ms), (profile_eager, min(eager))):
+        if isinstance(prof.get("device_ms"), float):
+            # the profiler inflates the wall time: the busy share that
+            # means something is device time over the unprofiled frame
+            prof["device_busy_share_of_unprofiled_frame"] = prof["device_ms"] / best
     result = {
         "card": _card(),
         "torch": torch.__version__,
@@ -217,13 +252,17 @@ def main() -> int:
             "frame": frame, "spp": spp, "bounces": bounces, "regen": regen,
         },
         "frame": {
-            "frame_ms": frame_ms, "frame_ms_all": frames, "trips": trips,
+            "frame_ms": frame_ms, "frame_ms_all": frames,
+            "eager_frame_ms": min(eager), "eager_frame_ms_all": eager,
+            "trips": trips, "trips_run": trips_run, "overshoot_trips": trips_run - trips,
+            "graph_replays": replays, "host_syncs": syncs,
+            "capture_s": renderer.capture_seconds,
             "mrays_per_s": frame * frame * spp * bounces * 2 / frame_ms / 1e3,
         },
         "profile": profile,
+        "profile_eager": profile_eager,
         "layers": measure_layers(renderer, opt),
-        # only the regeneration loop reads its condition back to the host
-        "loop_sync": measure_loop_sync(frame * frame, trips) if regen else None,
+        "loop_sync": measure_loop_sync(frame * frame, syncs),
     }
     text = json.dumps(result, indent=1)
     print(text)
