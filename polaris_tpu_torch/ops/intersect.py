@@ -409,11 +409,16 @@ def scene_layout(S, tris_hh: Optional[torch.Tensor] = None) -> BinaryLayout:
     ``tri_v0/e1/e2``. The kernel ``csrc/intersect.cu`` reads the same bits
     from its own packed copy (``intersect_cuda.k1_layout``)."""
 
+    last = int(S["bvh_ldata"].shape[0]) - 1
+
     def fetch(node):
         ld = S["bvh_ldata"][node].to(torch.int64)
         rd = S["bvh_rdata"][node].to(torch.int64)
-        lc = torch.clamp(ld, min=0)
-        rc = torch.clamp(rd, min=0)
+        # a leaf's words are no child indices (a BLAS leaf's rd is its
+        # triangle count, which may pass the last node): clamp into the node
+        # array as XLA's gather does; a leaf's child boxes are never read
+        lc = torch.clamp(ld, 0, last)
+        rc = torch.clamp(rd, 0, last)
         return (
             ld, rd, S["bvh_min"][lc], S["bvh_max"][lc],
             S["bvh_min"][rc], S["bvh_max"][rc],

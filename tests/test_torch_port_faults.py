@@ -12,6 +12,10 @@
 3. Every file the port copies verbatim from the JAX package is byte for
    byte the original: ``asset/**``, ``native/__init__.py``, the native
    sources, ``types.py``, ``utils/log.py``, ``render/options.py``.
+4. ``mode="bvh"`` renders a scene whose BVH is one TLAS leaf over one BLAS
+   leaf: the plain binary traversal fetched a leaf's child boxes at its
+   data words, and a BLAS leaf's triangle count (6) passed the last of the
+   2 nodes. The fetch clamps into the node array, as XLA's gather does.
 """
 
 import os
@@ -162,3 +166,29 @@ def test_verbatim_copy_is_the_original_byte_for_byte(path):
 
 def test_verbatim_asset_tree_has_the_same_files():
     assert _asset_files(PORT_PKG) == _asset_files(JAX_PKG)
+
+
+def test_bvh_mode_renders_a_single_leaf_mesh(textured_scene):
+    """``tests/conftest.py``'s textured scene through the port's
+    ``mode="bvh"`` against ``TpuRenderer(mode="bvh")`` at
+    ``tests/test_parity.py::_compare``'s tolerance (textured: atol 2e-4,
+    rtol 1e-3), and every other CPU mode against it at the same tolerance
+    (``pallas8`` shares the quotient leaf test, so it is equal bit for
+    bit)."""
+    from polaris_tpu.render.integrator import TpuRenderer
+    from polaris_tpu.render.options import RenderOptions as JaxOptions
+    from polaris_tpu_torch.render.integrator import TorchRenderer
+    from polaris_tpu_torch.render.options import RenderOptions
+
+    frame = dict(width=16, height=16, spp=2, num_bounces=2, min_bounces_for_rr=3)
+    scene = {f.name: getattr(textured_scene, f.name) for f in fields(textured_scene)}
+    assert scene["bvh_ldata"].shape[0] < scene["tri_v0"].shape[0]
+    got = TorchRenderer(scene, device="cpu", mode="bvh").render_accum(RenderOptions(**frame))
+    want = np.asarray(TpuRenderer(textured_scene, mode="bvh").render_accum(JaxOptions(**frame)))
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-4, rtol=1e-3)
+    for mode in CPU_MODES:
+        other = TorchRenderer(scene, device="cpu", mode=mode).render_accum(RenderOptions(**frame))
+        if mode == "pallas8":
+            assert torch.equal(other, got), mode
+        np.testing.assert_allclose(other.numpy(), got.numpy(), atol=2e-4, rtol=1e-3, err_msg=mode)
