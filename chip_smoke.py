@@ -86,6 +86,23 @@ printing one JSON line:
             256-spp uniform render; each stopped block bit-equal to
             ``render_accum_offset`` at its count, ``tol=0`` bit-equal to it
             at 64 spp
+  grad      the differentiable path (the JAX package's bench_grad.py): sphere
+            512x512, 8 spp, 5 bounces, RR after 3, zero target, through K1;
+            ``loss_only`` and ``loss_and_grad`` (each replayed from one CUDA
+            graph) best of 3, the backward/forward ratio, Mrays/s, capture
+            seconds, peak memory, K1's launches a step (40 closest, 40 any);
+            the captured step against the eager step (loss bit-equal, each
+            gradient field within 1e-5 of its largest |gradient|); K1
+            against its plain version under the gradient (128x128, 2 spp,
+            eager: the same); the step against the JAX-made fixture
+            tests/fixtures/torch_golden_grad_cornell_24.npz (loss rtol 1e-4,
+            each field within 1e-3); ``render_from_params`` through the
+            graphs bit-equal to the eager loop, the scene's storage kept;
+            5 Adam steps of ``Trainer`` (the loss falls; a checkpoint
+            restores into a fresh trainer); the 128-spp headline frame
+  denoise   cornell 512x512, 16 spp, 4 levels: guide-pass and filter ms (one
+            graph each), the MSE of the tonemapped image against a 256-spp
+            render before and after the filter (it must drop)
 
 The last three lines of the output are: the card's name and power limit as
 nvidia-smi prints them, one JSON object ``{"kernels": [...]}`` with the twelve
@@ -141,6 +158,16 @@ STREAM_GRID = 400  # terrain320k: the scene the JAX package streams triangles fo
 # adaptive sampling on cornell: a cap, a chunk and a tolerance of the JAX
 # package's scripts/bench_adaptive.py; its 1024-spp reference cut to 256
 ADAPT_SPP, ADAPT_CHUNK, ADAPT_TOL, ADAPT_REF_SPP = 64, 16, 0.08, 256
+# the differentiable path: the JAX package's bench_grad.py (sphere 512x512,
+# 8 spp, 5 bounces, RR after 3; its third row 128 spp in launches of 32);
+# K1 against its plain version under the gradient on a 128x128 2-spp frame
+GRAD_SPP, GRAD_CHECK, GRAD_CHECK_SPP = 8, 128, 2
+HEADLINE_SPP, HEADLINE_CHUNK = 128, 32
+GRAD_TOL = 1e-5  # of each field's largest |gradient|: graph or plain vs eager K1
+FIXTURE_LOSS_RTOL, FIXTURE_FIELD_TOL = 1e-4, 1e-3  # against the JAX-made fixture
+TRAIN_STEPS, TRAIN_LR, TRAIN_FACTOR = 5, 3e-2, 0.55
+# the denoiser on cornell 512x512: 16 spp, 4 levels, a 256-spp reference
+DENOISE_SPP, DENOISE_ITERS, DENOISE_REF_SPP = 16, 4, 256
 # the scenes of the mode-by-scene grid; the two mid-size terrains (grids 100
 # and 200) are there to show whether 'auto' should leave K1 at some size
 GRID_SCENES = (
@@ -1287,6 +1314,254 @@ def phase_adaptive(cornell, smi: str):
     )
 
 
+def field_diffs(got: dict, want: dict, label: str, tol: float) -> dict:
+    """Each gradient field's largest |difference| over the field's largest
+    |value| in ``want``; fails above ``tol``, or where ``want`` is all zeros
+    and ``got`` is not."""
+    out = {}
+    for k, w in want.items():
+        w = torch.as_tensor(w, device=got[k].device)
+        if got[k].shape != w.shape or not bool(torch.isfinite(got[k]).all()):
+            fail(f"{label}: field {k} has shape {tuple(got[k].shape)} or is not finite")
+        scale, diff = float(w.abs().max()), float((got[k] - w).abs().max())
+        out[k] = diff / scale if scale > 0 else diff
+        if out[k] > (tol if scale > 0 else 0.0):
+            fail(f"{label}: field {k} differs by {out[k]} of its largest |gradient| (> {tol})")
+    return out
+
+
+def timed_runs(fn, reps: int):
+    """``reps`` calls of ``fn``, each timed on the host clock around work that
+    ends in a synchronise, the launch counts set to 0 just before and read
+    just after. Returns (last result, times in ms, last call's counts)."""
+    times, counts, out = [], {}, None
+    for _ in range(reps):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        counts = read_launches()
+    return out, times, counts
+
+
+def phase_grad(scenes, smi: str):
+    """The differentiable path (the JAX package's bench_grad.py) on sphere
+    512x512, 8 spp, 5 bounces, RR after 3, zero target, through K1:
+    ``loss_only`` and ``loss_and_grad`` (each one CUDA graph), best of 3,
+    with K1's launches a step; the captured step against the eager step
+    (loss bit-equal, each field within GRAD_TOL of its largest |gradient|);
+    the eager step through K1 against the eager step through K1's plain
+    version on a 128x128 2-spp frame (the same); the step against the
+    JAX-made fixture (cornell 24x24); ``render_from_params`` through the
+    graphs against the eager loop with the same parameters (bit for bit, the
+    scene's storage kept); 5 Adam steps of ``Trainer`` toward a target with
+    darker diffuse colors (the loss falls; a checkpoint restores into a
+    fresh trainer); and the 128-spp headline frame."""
+    from dataclasses import replace
+
+    from polaris_tpu_torch.ops import intersect_cuda
+    from polaris_tpu_torch.render.grad import DifferentiableRenderer, loss_and_grad_eager
+    from polaris_tpu_torch.render.integrator import TorchRenderer, render_blocked_eager
+    from polaris_tpu_torch.render.options import RenderOptions
+    from polaris_tpu_torch.render.shade import tonemap_reinhard
+    from polaris_tpu_torch.render.trainer import TrainConfig, Trainer
+
+    sphere = scenes["sphere"]
+    opt = RenderOptions(width=FRAME, height=FRAME, spp=GRAD_SPP, num_bounces=BOUNCES,
+                        min_bounces_for_rr=RR_AFTER)
+    target = np.zeros((FRAME, FRAME, 3), np.float32)
+    r = DifferentiableRenderer(sphere, mode="auto")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    r.loss_only(opt, target)
+    r.loss_and_grad(opt, target)
+    torch.cuda.synchronize()
+    first_s, capture_s = time.perf_counter() - t0, r.capture_seconds
+    peak = torch.cuda.max_memory_allocated()
+    fwd_loss, fwd_ms, fwd_counts = timed_runs(lambda: r.loss_only(opt, target), 3)
+    (loss, grads, cam), step_ms, step_counts = timed_runs(
+        lambda: r.loss_and_grad(opt, target), 3
+    )
+    per_step = {"closest_hit": GRAD_SPP * BOUNCES, "any_hit": GRAD_SPP * BOUNCES}
+    for label, counts in (("loss_only", fwd_counts), ("loss_and_grad", step_counts)):
+        if counts != {"K1": per_step}:
+            fail(f"grad: a {label} step launched {counts}, expected K1 {per_step}")
+    if not np.isfinite(loss) or loss <= 0:
+        fail(f"grad: loss {loss}")
+
+    # the captured step against the eager one, in this process
+    (e_loss, e_grads, e_cam), eager_ms, _ = timed_runs(
+        lambda: loss_and_grad_eager(r, opt, target), 1
+    )
+    if e_loss != loss:
+        fail(f"grad: the captured step's loss {loss!r} differs from the eager {e_loss!r}")
+    graph_diffs = field_diffs({**grads, **cam}, {**e_grads, **e_cam}, "grad/eager", GRAD_TOL)
+    del e_grads, e_cam
+
+    # K1 against its plain version under the gradient (eager: the plain
+    # traversal reads its loop condition back to the host)
+    small = replace(opt, width=GRAD_CHECK, height=GRAD_CHECK, spp=GRAD_CHECK_SPP)
+    zeros = np.zeros((GRAD_CHECK, GRAD_CHECK, 3), np.float32)
+    P = r.closest.packed
+    k_loss, k_g, k_c = loss_and_grad_eager(r, small, zeros)
+    p_loss, p_g, p_c = loss_and_grad_eager(
+        r, small, zeros,
+        closest=lambda S, *rays: intersect_cuda.k1_plain(P, *rays, any_hit=False),
+        any_hit=lambda S, *rays: intersect_cuda.k1_plain(P, *rays, any_hit=True).mask,
+    )
+    if k_loss != p_loss:
+        fail(f"grad: K1's loss {k_loss!r} differs from its plain version's {p_loss!r}")
+    plain_diffs = field_diffs({**k_g, **k_c}, {**p_g, **p_c}, "grad/plain", GRAD_TOL)
+
+    # against the gradients the JAX package computed
+    fx = np.load(os.path.join(HERE, "tests", "fixtures", "torch_golden_grad_cornell_24.npz"))
+    fopt = RenderOptions(**{k: int(fx[k]) for k in (
+        "width", "height", "spp", "num_bounces", "min_bounces_for_rr")})
+    rc = DifferentiableRenderer(scenes["cornell"], mode="auto")
+    c_loss, c_g, c_c = rc.loss_and_grad(
+        fopt, np.zeros((fopt.height, fopt.width, 3), np.float32)
+    )
+    fx_loss_rel = abs(c_loss - float(fx["loss"])) / float(fx["loss"])
+    if fx_loss_rel > FIXTURE_LOSS_RTOL:
+        fail(f"grad: loss {c_loss} against the JAX fixture's {float(fx['loss'])}")
+    fixture_diffs = field_diffs(
+        {**c_g, **c_c}, {k[2:]: fx[k] for k in fx.files if k.startswith("g.")},
+        "grad/fixture", FIXTURE_FIELD_TOL,
+    )
+    del rc
+
+    # render_from_params through the graphs against the eager loop
+    ptrs = {k: v.data_ptr() for k, v in r.S.items() if torch.is_tensor(v)}
+    before = {k: v.detach().clone() for k, v in r.params.items()}
+    dark = r.params["mat_reflectance"].detach() * TRAIN_FACTOR
+    got = r.render_from_params(opt, {"mat_reflectance": dark})
+    with torch.no_grad():
+        r.params["mat_reflectance"].copy_(dark)
+        ref = r.finalize(render_blocked_eager(r, opt)[0], opt)
+        r.params["mat_reflectance"].copy_(before["mat_reflectance"])
+    if not torch.equal(got, ref):
+        fail("grad: render_from_params differs from the eager render with its params")
+    if {k: v.data_ptr() for k, v in r.S.items() if torch.is_tensor(v)} != ptrs:
+        fail("grad: render_from_params moved a tensor of the scene")
+    if any(not torch.equal(r.params[k], v) for k, v in before.items()):
+        fail("grad: render_from_params did not restore the parameters")
+    train_target = tonemap_reinhard(got + 1e-6, 1.0 / opt.spp, opt.exposure)
+    del r, got, ref
+    torch.cuda.empty_cache()
+
+    # the trainer at full size, then a checkpoint into a fresh trainer
+    ckpt_dir = os.path.join(HERE, "build", "chip_smoke_checkpoints")
+    cfg = TrainConfig(learning_rate=TRAIN_LR, num_steps=TRAIN_STEPS, reseed_each_step=False,
+                      checkpoint_dir=ckpt_dir)
+    tr = Trainer(sphere, opt, cfg)
+    _, train_ms, train_counts = timed_runs(lambda: tr.step(train_target), TRAIN_STEPS)
+    history = [float(x) for x in tr.history]
+    if not history[-1] < history[0]:
+        fail(f"grad: the trainer's loss did not fall: {history}")
+    path = tr.save_checkpoint()
+    tr2 = Trainer(sphere, opt, cfg)
+    tr2.restore_checkpoint(path)
+    os.remove(path)
+    os.rmdir(ckpt_dir)
+    if tr2.step_idx != tr.step_idx or any(
+        not torch.equal(tr2.renderer.params[k], v) for k, v in tr.renderer.params.items()
+    ) or not all(np.array_equal(a, b) for a, b in zip(tr2._opt_leaves(), tr._opt_leaves())):
+        fail("grad: the restored trainer differs from the one that wrote the checkpoint")
+    del tr, tr2
+    torch.cuda.empty_cache()
+
+    # the headline frame (bench_grad.py's third row)
+    hr = TorchRenderer(sphere, mode="auto", regen=True)
+    hr.spp_per_launch = HEADLINE_CHUNK
+    hopt = replace(opt, spp=HEADLINE_SPP)
+    hr.render_u8(hopt)
+    img, frame_ms, _ = timed_runs(lambda: hr.render_u8(hopt), 2)
+    if not img.mean() > 1.0:
+        fail("grad: black headline frame")
+    del hr
+    torch.cuda.empty_cache()
+
+    rays = FRAME * FRAME * GRAD_SPP * BOUNCES * 2
+    emit(
+        "grad", card=smi, scene="sphere", frame=f"{FRAME}x{FRAME}x{GRAD_SPP}spp",
+        bounces=BOUNCES, rr_after=RR_AFTER, loss=loss,
+        loss_only_ms=min(fwd_ms), loss_only_ms_all=fwd_ms,
+        loss_and_grad_ms=min(step_ms), loss_and_grad_ms_all=step_ms,
+        backward_forward_ratio=min(step_ms) / min(fwd_ms),
+        mrays_per_s_forward=rays / min(fwd_ms) / 1e3,
+        mrays_per_s_step=rays / min(step_ms) / 1e3,
+        eager_step_ms=eager_ms[0], first_calls_s=first_s, capture_s=capture_s,
+        peak_mem_bytes=peak, k1_launches_per_step=step_counts["K1"],
+        loss_only_equal=fwd_loss == loss,
+        against_eager={"loss_equal": True, "field_rel_diff": graph_diffs},
+        against_plain={"frame": f"{GRAD_CHECK}x{GRAD_CHECK}x{GRAD_CHECK_SPP}spp",
+                       "loss_equal": True, "field_rel_diff": plain_diffs},
+        against_jax_fixture={"frame": f"{fopt.width}x{fopt.height}x{fopt.spp}spp",
+                             "scene": "cornell", "loss_rel_diff": fx_loss_rel,
+                             "field_rel_diff": fixture_diffs},
+        render_from_params_equal=True,
+        trainer={"steps": TRAIN_STEPS, "lr": TRAIN_LR, "history": history,
+                 "step_ms": train_ms, "launches_last_step": train_counts,
+                 "checkpoint_restored": True},
+        headline={"frame": f"{FRAME}x{FRAME}x{HEADLINE_SPP}spp", "regen": True,
+                  "spp_per_launch": HEADLINE_CHUNK, "frame_ms": min(frame_ms),
+                  "frame_ms_all": frame_ms,
+                  "mrays_per_s": FRAME * FRAME * HEADLINE_SPP * BOUNCES * 2
+                  / min(frame_ms) / 1e3},
+    )
+
+
+def phase_denoise(cornell, smi: str):
+    """The à-trous denoiser on cornell 512x512, DENOISE_SPP samples,
+    DENOISE_ITERS levels, through K1: the guide pass (one closest-hit
+    launch) and the filter, each one CUDA graph, best of 3; the MSE of the
+    tonemapped image against a DENOISE_REF_SPP render before and after the
+    filter, which must drop."""
+    from dataclasses import replace
+
+    from polaris_tpu_torch.render.denoise import denoise_accum, render_guides
+    from polaris_tpu_torch.render.integrator import TorchRenderer
+    from polaris_tpu_torch.render.options import RenderOptions
+    from polaris_tpu_torch.render.shade import tonemap_reinhard
+
+    opt = RenderOptions(width=FRAME, height=FRAME, spp=DENOISE_SPP, num_bounces=BOUNCES,
+                        min_bounces_for_rr=RR_AFTER)
+    r = TorchRenderer(cornell, mode="auto")
+    accum = r.render_accum(opt)
+    den = denoise_accum(r, opt, accum, opt.spp, iterations=DENOISE_ITERS)  # captures
+    capture_s = r.capture_seconds
+    _, guide_ms, guide_counts = timed_runs(lambda: render_guides(r, opt), 3)
+    if guide_counts != {"K1": {"closest_hit": 1}}:
+        fail(f"denoise: a guide pass launched {guide_counts}, expected one K1 closest hit")
+    filt = r._programs[("filter", FRAME, FRAME, DENOISE_ITERS, True)]
+    _, filter_ms, _ = timed_runs(filt.step, 3)
+    den, denoise_ms, _ = timed_runs(
+        lambda: denoise_accum(r, opt, accum, opt.spp, iterations=DENOISE_ITERS), 3
+    )
+    if den.shape != accum.shape or not bool(torch.isfinite(den).all()):
+        fail("denoise: wrong shape or non-finite output")
+    ref = r.render_accum(replace(opt, spp=DENOISE_REF_SPP))
+
+    def tone(acc, spp):
+        return tonemap_reinhard(acc, 1.0 / spp, opt.exposure)
+
+    target = tone(ref, DENOISE_REF_SPP)
+    before = float(((tone(accum, opt.spp) - target) ** 2).mean())
+    after = float(((tone(den, opt.spp) - target) ** 2).mean())
+    if not after < before:
+        fail(f"denoise: the MSE did not drop ({before} -> {after})")
+    emit(
+        "denoise", card=smi, scene="cornell", frame=f"{FRAME}x{FRAME}x{DENOISE_SPP}spp",
+        iterations=DENOISE_ITERS, guide_ms=min(guide_ms), guide_ms_all=guide_ms,
+        filter_ms=min(filter_ms), filter_ms_all=filter_ms, denoise_ms=min(denoise_ms),
+        capture_s=capture_s, guide_launches=guide_counts, ref_spp=DENOISE_REF_SPP,
+        mse_before=before, mse_after=after,
+    )
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1372,6 +1647,8 @@ def main() -> int:
         k1 = phase_configs(scenes, smi)
         launches["K1"] = launches["K1hh"] = k1
         phase_adaptive(scenes["cornell"], smi)
+        phase_grad(scenes, smi)
+        phase_denoise(scenes["cornell"], smi)
     for e in entries.values():
         e["launches"] = launches[e["kernel"]][
             FAMILIES[e["kernel"]]["keys"][1 if e["any_hit"] else 0]

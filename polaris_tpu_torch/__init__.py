@@ -8,6 +8,8 @@ hand-written CUDA under ``csrc/``. Imports ``torch`` only.
         read_scene, compile_scene, SceneData,   # asset pipeline
         RenderOptions, TorchRenderer,           # rendering
         upload_scene,                           # host -> device scene dict
+        DifferentiableRenderer, Trainer,        # inverse rendering
+        TrainConfig, denoise_accum,
     )
 """
 
@@ -40,6 +42,18 @@ def __getattr__(name):
         from .render.integrator import TorchRenderer
 
         return TorchRenderer
+    if name == "DifferentiableRenderer":
+        from .render.grad import DifferentiableRenderer
+
+        return DifferentiableRenderer
+    if name in ("Trainer", "TrainConfig"):
+        from .render import trainer
+
+        return getattr(trainer, name)
+    if name == "denoise_accum":
+        from .render.denoise import denoise_accum
+
+        return denoise_accum
     if name == "upload_scene":
         from .scene import upload_scene
 

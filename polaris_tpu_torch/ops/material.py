@@ -60,8 +60,7 @@ MATERIAL_FIELDS = (
 
 def gather_material(S, node_idx):
     """Gather per-lane material leaf fields from the SoA node arrays."""
-    idx = node_idx.long()
-    return {f: S["mat_" + f][idx] for f in MATERIAL_FIELDS}
+    return {f: V.take_small(S["mat_" + f], node_idx) for f in MATERIAL_FIELDS}
 
 
 def apply_normal_map(S, normal, uv, tex_idx):
@@ -135,7 +134,7 @@ def select_material(S, U, root_idx, normal, uv, flags, max_depth=MAX_MATERIAL_DE
         u = U(STREAM_MAT_MIX + level)
 
         # MIX / MIX_MAP: binary choice
-        mix_w = S["mat_mix_weight"][node]
+        mix_w = V.take_small(S["mat_mix_weight"], node)
         if MIXMAP:
             mix_w = torch.where(
                 t == OP_MIX_MAP,
@@ -172,8 +171,8 @@ def select_material(S, U, root_idx, normal, uv, flags, max_depth=MAX_MATERIAL_DE
             is_disp = is_op & (t == OP_DISPERSE)
             disp_tint = torch.stack([sel_r, sel_g, sel_b], dim=-1).to(normal.dtype)
             tint = V.where3(is_disp, disp_tint, tint)
-            int_all = S["mat_int_disp_ior"][node]
-            ext_all = S["mat_ext_disp_ior"][node]
+            int_all = V.take_small(S["mat_int_disp_ior"], node)
+            ext_all = V.take_small(S["mat_ext_disp_ior"], node)
             int_d = torch.where(
                 sel_r,
                 int_all[..., 0],

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from .statics import tex_on
+from .vec import take_small
 
 # the loader's exact dequantisation factor (asset/texture.py INV255)
 _INV255 = float(np.float32(1.0 / 255.0))
@@ -113,7 +114,7 @@ def _corners(S, uv, tex_idx, nc: int, taps):
         data = S["tex_data"]
         # in a mixed scene the lanes of the other family index out of this
         # atlas's range: clip, their value is dropped below
-        qf = data[torch.clamp(at, max=data.shape[0] - 1) if has_u8 else at]
+        qf = take_small(data, torch.clamp(at, max=data.shape[0] - 1) if has_u8 else at)
     if has_u8:
         data = S["tex_data_u8"]
         qu = data[torch.clamp(at, max=data.shape[0] - 1) if has_f32 else at]

@@ -36,8 +36,15 @@ def safe_div_abs(num, den, thresh):
 
 
 def take_small(table, idx):
-    """``table[idx]`` for a per-lane index tensor of any integer dtype."""
-    return table[idx.long()]
+    """``table[idx]`` for an index tensor of any integer dtype and shape.
+
+    Through ``index_select``, whose gradient ``index_add_`` sums with
+    atomics: the gradient of ``table[idx]`` sorts the indices and adds each
+    run of equal ones serially, which on a card takes milliseconds a call
+    for a table of a few rows that every lane reads (a material field).
+    """
+    rows = torch.index_select(table, 0, idx.reshape(-1).long())
+    return rows.reshape(*idx.shape, *table.shape[1:])
 
 
 def dot3(a, b):
