@@ -164,9 +164,11 @@ class Trainer:
             k: self.renderer.params[k]
             for k in sorted(self.renderer.params) if k in cfg.trainable
         }
+        # torch's optimizers refuse an empty list, where optax takes an
+        # empty tree (a camera-only fit)
         self.optimizer = _OPTIMIZERS[cfg.optimizer](
             list(self.trainable.values()), cfg.learning_rate
-        )
+        ) if self.trainable else None
         self.camera = Camera.from_scene(self.renderer.scene, opt.width, opt.height)
         self.history: List[float] = []
 
@@ -178,7 +180,8 @@ class Trainer:
         loss, g_params, g_cam = self.renderer.loss_and_grad(opt, target, self.camera)
         for k, p in self.trainable.items():
             p.grad = g_params[k]
-        self.optimizer.step()
+        if self.optimizer is not None:
+            self.optimizer.step()
         project_params(self.renderer.params)
         if self.cfg.optimize_camera:
             eye = torch.from_numpy(np.asarray(self.camera.position, np.float32))

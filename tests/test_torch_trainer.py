@@ -254,3 +254,23 @@ def test_new_modules_import_neither_jax_nor_optax():
                          env=env, timeout=300, cwd=repo)
     assert out.returncode == 0, out.stderr[-2000:]
     assert "clean" in out.stdout
+
+
+def test_optimize_camera_moves_the_eye_down_its_gradient(cornell_scene):
+    """``optimize_camera``: after the parameters, the eye moves by ``-lr``
+    times its gradient and the frustum follows (``Camera.update``)."""
+    from polaris_tpu_torch.render.options import RenderOptions
+    from polaris_tpu_torch.render.trainer import TrainConfig, Trainer
+
+    opt = RenderOptions(**FRAME)
+    target = np.full((opt.height, opt.width, 3), 0.3, np.float32)
+    cfg = TrainConfig(learning_rate=LR, optimize_camera=True, reseed_each_step=False,
+                      trainable=())
+    tr = Trainer(_scene_dict(cornell_scene), opt, cfg, mode="bvh", device="cpu")
+    eye0 = np.array(tr.camera.position, np.float32)
+    frustum0 = np.array(tr.camera.frustum, np.float32)
+    g_eye = tr.renderer.loss_and_grad(opt, target, tr.camera)[2]["eye"].numpy()
+    tr.step(target)
+    assert np.abs(g_eye).max() > 0
+    np.testing.assert_array_equal(tr.camera.position, eye0 - np.float32(LR) * g_eye)
+    assert not np.array_equal(tr.camera.frustum, frustum0)
