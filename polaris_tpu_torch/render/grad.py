@@ -148,9 +148,10 @@ class DifferentiableRenderer(TorchRenderer):
 
     ``params`` maps each field of ``PARAM_FIELDS`` to the very tensor of
     ``self.S`` (a copy of the scene's array made at construction, with
-    ``requires_grad`` set); ``geom`` holds the rest of ``S``. The CUDA graphs read ``S`` by address, so parameters change in
-    place (an optimizer's step, ``render_from_params``), never by rebinding
-    a key of ``S``.
+    ``requires_grad`` set); ``geom`` holds the rest of ``S``. The CUDA
+    graphs read ``S`` by address, so parameters change in place (an
+    optimizer's step, ``render_from_params``), never by rebinding a key of
+    ``S``.
     """
 
     def __init__(self, scene, *args, **kwargs):
