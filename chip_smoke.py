@@ -100,9 +100,12 @@ printing one JSON line:
             graphs bit-equal to the eager loop, the scene's storage kept;
             5 Adam steps of ``Trainer`` (the loss falls; a checkpoint
             restores into a fresh trainer); the 128-spp headline frame
-  denoise   cornell 512x512, 16 spp, 4 levels: guide-pass and filter ms (one
-            graph each), the MSE of the tonemapped image against a 256-spp
-            render before and after the filter (it must drop)
+  denoise   cornell 512x512, 16 spp, 4 levels: the replayed guide pass and
+            filter (one graph each) against the guides through K1's plain
+            version and the filter run op by op, bit for bit, at two cameras
+            with two accumulators; guide-pass and filter ms; the MSE of the
+            tonemapped image against a 256-spp render before and after the
+            filter (it must drop)
 
 The last three lines of the output are: the card's name and power limit as
 nvidia-smi prints them, one JSON object ``{"kernels": [...]}`` with the twelve
@@ -168,6 +171,7 @@ FIXTURE_LOSS_RTOL, FIXTURE_FIELD_TOL = 1e-4, 1e-3  # against the JAX-made fixtur
 TRAIN_STEPS, TRAIN_LR, TRAIN_FACTOR = 5, 3e-2, 0.55
 # the denoiser on cornell 512x512: 16 spp, 4 levels, a 256-spp reference
 DENOISE_SPP, DENOISE_ITERS, DENOISE_REF_SPP = 16, 4, 256
+DENOISE_YAW = 0.05  # radians: the second camera of the denoiser's replay check
 # the scenes of the mode-by-scene grid; the two mid-size terrains (grids 100
 # and 200) are there to show whether 'auto' should leave K1 at some size
 GRID_SCENES = (
@@ -1516,13 +1520,23 @@ def phase_grad(scenes, smi: str):
 
 def phase_denoise(cornell, smi: str):
     """The à-trous denoiser on cornell 512x512, DENOISE_SPP samples,
-    DENOISE_ITERS levels, through K1: the guide pass (one closest-hit
-    launch) and the filter, each one CUDA graph, best of 3; the MSE of the
-    tonemapped image against a DENOISE_REF_SPP render before and after the
-    filter, which must drop."""
+    DENOISE_ITERS levels, through K1. The guide pass (one closest-hit
+    launch) and the filter each run from one CUDA graph. Two calls, at the
+    scene's camera and at one turned by DENOISE_YAW, each with an
+    accumulator, a sample count and bandwidths of its own: the replayed
+    guides against ``guide_images`` through K1's plain version, and the
+    replayed filter against ``filter_accum`` op by op on the same
+    accumulator and guides, both bit for bit (a replay that read a stale
+    input would differ). Then guide ms and filter ms, best of 3, and the MSE
+    of the tonemapped image against a DENOISE_REF_SPP render before and
+    after the filter, which must drop."""
     from dataclasses import replace
 
-    from polaris_tpu_torch.render.denoise import denoise_accum, render_guides
+    from polaris_tpu_torch.asset.camera import Camera
+    from polaris_tpu_torch.ops import intersect_cuda
+    from polaris_tpu_torch.render.denoise import (
+        denoise_accum, filter_accum, filter_program, guide_images, render_guides,
+    )
     from polaris_tpu_torch.render.integrator import TorchRenderer
     from polaris_tpu_torch.render.options import RenderOptions
     from polaris_tpu_torch.render.shade import tonemap_reinhard
@@ -1530,13 +1544,57 @@ def phase_denoise(cornell, smi: str):
     opt = RenderOptions(width=FRAME, height=FRAME, spp=DENOISE_SPP, num_bounces=BOUNCES,
                         min_bounces_for_rr=RR_AFTER)
     r = TorchRenderer(cornell, mode="auto")
-    accum = r.render_accum(opt)
-    den = denoise_accum(r, opt, accum, opt.spp, iterations=DENOISE_ITERS)  # captures
+    P = r.closest.packed
+    turned = Camera.from_scene(cornell, FRAME, FRAME)
+    turned.yaw = DENOISE_YAW
+    turned.update()
+    runs = []
+    for camera, spp, bw in (
+        (None, DENOISE_SPP, dict(c_phi=0.4, n_phi=0.25, d_phi=0.05)),
+        (turned, DENOISE_SPP // 2, dict(c_phi=0.3, n_phi=0.2, d_phi=0.1)),
+    ):
+        runs.append((camera, spp, bw, r.render_accum(replace(opt, spp=spp), camera)))
+    # the first calls capture (their results come from the warm-up step)
+    camera, spp, bw, accum = runs[-1]
+    denoise_accum(r, opt, accum, spp, camera, iterations=DENOISE_ITERS, **bw)
     capture_s = r.capture_seconds
+    checks, images = [], []
+    for camera, spp, bw, accum in runs:
+        nrm, z = render_guides(r, opt, camera)
+        p_nrm, p_z = guide_images(
+            r, *r._camera_tensors(opt, camera), FRAME, FRAME,
+            closest=lambda S, *rays: intersect_cuda.k1_plain(P, *rays, any_hit=False),
+        )
+        den = denoise_accum(r, opt, accum, spp, camera, iterations=DENOISE_ITERS, **bw)
+        # the program reads the count and the bandwidths from 0-d tensors
+        want = filter_accum(
+            accum, nrm, z, torch.tensor(float(spp), device=r.device),
+            iterations=DENOISE_ITERS, fireflies=True,
+            **{k: torch.tensor(v, device=r.device) for k, v in bw.items()},
+        )
+        label = "turned" if camera is not None else "scene"
+        check = {
+            "camera": label, "spp": spp, **bw,
+            "guide_pixels_differ": int(((nrm != p_nrm).any(-1) | (z != p_z)).sum()),
+            "filter_max_abs_diff": float((den - want).abs().max()),
+        }
+        checks.append(check)
+        if check["guide_pixels_differ"]:
+            fail(f"denoise: the replayed guides ({label} camera) differ from K1's plain "
+                 f"version's at {check['guide_pixels_differ']} pixels")
+        if not torch.equal(den, want):
+            fail(f"denoise: the replayed filter ({label} camera) differs from the eager "
+                 f"filter by {check['filter_max_abs_diff']}")
+        images.append((nrm, den))
+    if torch.equal(images[0][0], images[1][0]) or torch.equal(images[0][1], images[1][1]):
+        fail("denoise: two calls with different inputs gave the same guides or output")
+    del runs, images, nrm, z, p_nrm, p_z, want
+
+    accum = r.render_accum(opt)
     _, guide_ms, guide_counts = timed_runs(lambda: render_guides(r, opt), 3)
     if guide_counts != {"K1": {"closest_hit": 1}}:
         fail(f"denoise: a guide pass launched {guide_counts}, expected one K1 closest hit")
-    filt = r._programs[("filter", FRAME, FRAME, DENOISE_ITERS, True)]
+    filt = filter_program(r, FRAME, FRAME, DENOISE_ITERS)
     _, filter_ms, _ = timed_runs(filt.step, 3)
     den, denoise_ms, _ = timed_runs(
         lambda: denoise_accum(r, opt, accum, opt.spp, iterations=DENOISE_ITERS), 3
@@ -1557,8 +1615,8 @@ def phase_denoise(cornell, smi: str):
         "denoise", card=smi, scene="cornell", frame=f"{FRAME}x{FRAME}x{DENOISE_SPP}spp",
         iterations=DENOISE_ITERS, guide_ms=min(guide_ms), guide_ms_all=guide_ms,
         filter_ms=min(filter_ms), filter_ms_all=filter_ms, denoise_ms=min(denoise_ms),
-        capture_s=capture_s, guide_launches=guide_counts, ref_spp=DENOISE_REF_SPP,
-        mse_before=before, mse_after=after,
+        capture_s=capture_s, guide_launches=guide_counts, replays_against_eager=checks,
+        ref_spp=DENOISE_REF_SPP, mse_before=before, mse_after=after,
     )
 
 

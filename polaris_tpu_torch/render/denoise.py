@@ -8,12 +8,13 @@ before it, ``despeckle`` clamps fireflies. The functions take [H, W, C]
 tensors and stay differentiable (the weights are ``exp`` of squared
 differences), so gradients flow through the filter to the radiance.
 
-The guide pass (``render_guides``) runs the renderer's closest-hit
+The guide pass (``guide_images``) runs the renderer's closest-hit
 traversal (K1 on a card) on pixel-centre primary rays and fetches the
-vertex normals as flat rows. It and the filter (despeckle and every level)
-each run as one step over static tensors (``render/graph.py``), kept among
-the renderer's programs per frame shape: replayed from a CUDA graph on a card, called
-directly on the CPU.
+vertex normals as flat rows. It and the filter (``filter_accum``: despeckle
+and every level) each run as one step over static tensors
+(``render/graph.py``), kept among the renderer's programs per frame shape:
+replayed from a CUDA graph on a card, called directly on the CPU. Called op
+by op, the two functions are the reference the steps are held against.
 
 One deliberate divergence: the JAX ``despeckle`` scales a pixel with fewer
 than two real neighbours (every pixel of a 1x1 frame, the ends of a frame
@@ -28,7 +29,6 @@ import numpy as np
 import torch
 
 from ..ops import vec as V
-from .graph import Step
 from .options import RenderOptions
 from .raygen import gen_rays
 
@@ -126,48 +126,74 @@ def _atrous_level(color, normal, depth, *, step, c_phi, n_phi, d_phi):
     return acc / wsum[..., None]
 
 
+def guide_images(r, frustum, eye, width: int, height: int, closest=None):
+    """Normals (H, W, 3) and normalized depth (H, W) of the closest hits of
+    ``r``'s scene on pixel-centre primary rays, in pixel order; lanes that
+    miss get normal 0 and depth 1. ``closest`` defaults to the renderer's
+    traversal (its plain version, say). The guide pass runs this as a step;
+    called op by op it is the reference that step is held against."""
+    dev, n = r.device, width * height
+    pix = torch.arange(n, device=dev)
+    xs, ys = (pix % width).to(torch.int32), (pix // width).to(torch.int32)
+    centre = torch.full((n,), 0.5, dtype=torch.float32, device=dev)  # the tent filter keeps 0.5
+    maxt = torch.full((n,), V.FLT_MAX, dtype=torch.float32, device=dev)
+    alive = torch.ones(n, dtype=torch.bool, device=dev)
+    o, d = gen_rays(frustum, eye, width, height, xs, ys, lambda _: centre)
+    hit = (closest or r.closest)(r.S, o, d, maxt, alive)
+    tn = r.S["tri_normals"].reshape(-1, 9)[hit.tri.long()]  # flat rows
+    w = 1.0 - hit.u - hit.v
+    n_obj = (
+        w[..., None] * tn[..., 0:3]
+        + hit.u[..., None] * tn[..., 3:6]
+        + hit.v[..., None] * tn[..., 6:9]
+    )
+    w2o = V.take_small(r.S["inst_w2o"], hit.inst)
+    nw = V.normalize3(V.transform_normal(w2o, n_obj))
+    t = torch.where(hit.mask, hit.t, 0.0)
+    tmax = torch.clamp(torch.max(t), min=1e-6)
+    normal = torch.where(hit.mask[..., None], nw, 0.0).reshape(height, width, 3)
+    depth = torch.where(hit.mask, t / tmax, 1.0).reshape(height, width)
+    return normal, depth
+
+
+def filter_accum(accum, normal, depth, samples, *, iterations: int, fireflies: bool,
+                 c_phi, n_phi, d_phi) -> torch.Tensor:
+    """Despeckle (when ``fireflies``) and ``iterations`` à-trous levels of the
+    mean of an accumulator of ``samples`` samples, returned at the
+    accumulator's scale. The filter program runs this as a step; called op by
+    op it is the reference that step is held against."""
+    mean = accum / samples
+    if fireflies:
+        mean = despeckle(mean)
+    return atrous_denoise(
+        mean, normal, depth, iterations=iterations, c_phi=c_phi, n_phi=n_phi, d_phi=d_phi,
+    ) * samples
+
+
 class _GuidePass:
-    """Pixel-centre primary rays of one frame shape, in pixel order, and
-    their closest hits' normals and normalized depth, as one step over
-    static tensors."""
+    """``guide_images`` of one frame shape as one step over static tensors."""
 
     def __init__(self, r, width: int, height: int):
-        dev, n = r.device, width * height
-        f32 = dict(dtype=torch.float32, device=dev)
-        pix = torch.arange(n, device=dev)
-        xs, ys = (pix % width).to(torch.int32), (pix // width).to(torch.int32)
-        centre = torch.full((n,), 0.5, **f32)  # the tent filter maps 0.5 to 0.5
-        maxt = torch.full((n,), V.FLT_MAX, **f32)
-        alive = torch.ones(n, dtype=torch.bool, device=dev)
+        f32 = dict(dtype=torch.float32, device=r.device)
         self.frustum = torch.zeros((4, 3), **f32)
         self.eye = torch.zeros(3, **f32)
         self.normal = torch.zeros((height, width, 3), **f32)
         self.depth = torch.zeros((height, width), **f32)
 
         def run():
-            o, d = gen_rays(self.frustum, self.eye, width, height, xs, ys, lambda _: centre)
-            hit = r.closest(r.S, o, d, maxt, alive)
-            tn = r.S["tri_normals"].reshape(-1, 9)[hit.tri.long()]  # flat rows
-            w = 1.0 - hit.u - hit.v
-            n_obj = (
-                w[..., None] * tn[..., 0:3]
-                + hit.u[..., None] * tn[..., 3:6]
-                + hit.v[..., None] * tn[..., 6:9]
-            )
-            w2o = V.take_small(r.S["inst_w2o"], hit.inst)
-            nw = V.normalize3(V.transform_normal(w2o, n_obj))
-            t = torch.where(hit.mask, hit.t, 0.0)
-            tmax = torch.clamp(torch.max(t), min=1e-6)
-            self.normal.copy_(torch.where(hit.mask[..., None], nw, 0.0).reshape(height, width, 3))
-            self.depth.copy_(torch.where(hit.mask, t / tmax, 1.0).reshape(height, width))
+            normal, depth = guide_images(r, self.frustum, self.eye, width, height)
+            self.normal.copy_(normal)
+            self.depth.copy_(depth)
 
-        self.step = Step(run, dev, r._stream, r._pool)
+        self.step = r.step(run)
         self.steps = [self.step]
 
 
-class _Filter:
-    """Despeckle and every à-trous level of one (H, W, iterations,
-    fireflies) as one step: the JAX package's ``_get_filter_fn``."""
+class FilterProgram:
+    """``filter_accum`` of one (H, W, iterations, fireflies) as one step over
+    static tensors: the JAX package's ``_get_filter_fn``. Calling it fills
+    the inputs and runs ``step``; ``out`` holds the result until the next
+    call."""
 
     def __init__(self, r, height: int, width: int, iterations: int, fireflies: bool):
         f32 = dict(dtype=torch.float32, device=r.device)
@@ -178,29 +204,40 @@ class _Filter:
         self.out = torch.zeros((height, width, 3), **f32)
 
         def run():
-            mean = self.accum / self.samples
-            if fireflies:
-                mean = despeckle(mean)
-            self.out.copy_(atrous_denoise(
-                mean, self.normal, self.depth, iterations=iterations, c_phi=self.c_phi,
-                n_phi=self.n_phi, d_phi=self.d_phi,
-            ) * self.samples)
+            self.out.copy_(filter_accum(
+                self.accum, self.normal, self.depth, self.samples, iterations=iterations,
+                fireflies=fireflies, c_phi=self.c_phi, n_phi=self.n_phi, d_phi=self.d_phi,
+            ))
 
-        self.step = Step(run, r.device, r._stream, r._pool)
+        self.step = r.step(run)
         self.steps = [self.step]
 
+    @torch.no_grad()
+    def __call__(self, accum, normal, depth, samples: int, c_phi: float, n_phi: float,
+                 d_phi: float) -> torch.Tensor:
+        self.accum.copy_(accum)
+        self.normal.copy_(normal)
+        self.depth.copy_(depth)
+        self.samples.fill_(float(max(int(samples), 1)))
+        self.c_phi.fill_(c_phi)
+        self.n_phi.fill_(n_phi)
+        self.d_phi.fill_(d_phi)
+        self.step()
+        return self.out
 
-def _cached(r, key, make):
-    """The renderer's program of ``key`` (kept beside its frame programs)."""
-    if key not in r._programs:
-        r._programs[key] = make()
-    return r._programs[key]
+
+def filter_program(r, height: int, width: int, iterations: int = 4,
+                   suppress_fireflies: bool = True) -> FilterProgram:
+    """The renderer's filter program of this shape (kept among its programs)."""
+    fireflies = bool(suppress_fireflies)
+    return r.program(("filter", height, width, iterations, fireflies),
+                     lambda: FilterProgram(r, height, width, iterations, fireflies))
 
 
 @torch.no_grad()
 def _guides(r, opt: RenderOptions, camera=None) -> _GuidePass:
     W, H = opt.width, opt.height
-    prog = _cached(r, ("guides", W, H), lambda: _GuidePass(r, W, H))
+    prog = r.program(("guides", W, H), lambda: _GuidePass(r, W, H))
     frustum, eye = r._camera_tensors(opt, camera)
     prog.frustum.copy_(frustum)
     prog.eye.copy_(eye)
@@ -237,16 +274,6 @@ def denoise_accum(
     guides = _guides(r, opt, camera)
     if not torch.is_tensor(accum):
         accum = torch.from_numpy(np.array(accum, np.float32))
-    H, W = accum.shape[0], accum.shape[1]
-    fireflies = bool(suppress_fireflies)
-    f = _cached(r, ("filter", H, W, iterations, fireflies),
-                lambda: _Filter(r, H, W, iterations, fireflies))
-    f.accum.copy_(accum)
-    f.normal.copy_(guides.normal)
-    f.depth.copy_(guides.depth)
-    f.samples.fill_(float(max(int(accumulated_samples), 1)))
-    f.c_phi.fill_(c_phi)
-    f.n_phi.fill_(n_phi)
-    f.d_phi.fill_(d_phi)
-    f.step()
-    return f.out.clone()
+    f = filter_program(r, accum.shape[0], accum.shape[1], iterations, suppress_fireflies)
+    return f(accum, guides.normal, guides.depth, accumulated_samples, c_phi, n_phi,
+             d_phi).clone()

@@ -37,7 +37,6 @@ import torch
 from ..asset.camera import Camera
 from ..asset.scene_data import PARAM_FIELDS
 from ..utils.log import get_logger
-from .graph import Step
 from .integrator import TorchRenderer, render_sample_block
 from .options import RenderOptions
 from .shade import tonemap_reinhard
@@ -131,7 +130,7 @@ class _LossProgram:
                 for buf, g in zip(self.grads, gs):
                     buf.copy_(g)
 
-        self.step = Step(run, dev, r._stream, r._pool)
+        self.step = r.step(run)
         self.steps = [self.step]
 
     @torch.no_grad()
@@ -180,9 +179,7 @@ class DifferentiableRenderer(TorchRenderer):
         """Kept beside the frame programs, under the JAX ``_jit_cache`` keys."""
         key = (opt.width, opt.height, opt.spp, opt.num_bounces, opt.min_bounces_for_rr,
                opt.rr_tile_coherent, "loss" if grad else "lossval")
-        if key not in self._programs:
-            self._programs[key] = _LossProgram(self, opt, grad)
-        return self._programs[key]
+        return self.program(key, lambda: _LossProgram(self, opt, grad))
 
     def _run_loss(self, opt, target, camera, grad: bool) -> _LossProgram:
         prog = self._loss_program(opt, grad)

@@ -385,7 +385,7 @@ class _Program:
         self.steps = []
 
     def step(self, fn) -> Step:
-        s = Step(fn, self.r.device, self.r._stream, self.r._pool)
+        s = self.r.step(fn)
         self.steps.append(s)
         return s
 
@@ -608,12 +608,24 @@ class TorchRenderer:
             )
         return self._carry_cache[W, H]
 
+    def program(self, key, make):
+        """The program kept under ``key``, made by ``make()`` on its first
+        use: the static tensors and steps of one shape of a loop (a frame's,
+        the loss step's, the denoiser's guide pass or filter). Each has a
+        ``steps`` list."""
+        if key not in self._programs:
+            self._programs[key] = make()
+        return self._programs[key]
+
+    def step(self, fn) -> Step:
+        """A ``Step`` of ``fn`` on this renderer's capture stream and graph
+        pool."""
+        return Step(fn, self.device, self._stream, self._pool)
+
     def _program(self, opt: RenderOptions, chunk: int, loop: str) -> _Program:
         key = (opt.width, opt.height, chunk, opt.num_bounces, opt.min_bounces_for_rr,
                opt.rr_tile_coherent, loop)
-        if key not in self._programs:
-            self._programs[key] = _LOOPS[loop](self, opt, chunk)
-        return self._programs[key]
+        return self.program(key, lambda: _LOOPS[loop](self, opt, chunk))
 
     @property
     def capture_seconds(self) -> float:

@@ -1,34 +1,27 @@
-"""Where the port's loss-and-gradient step spends its time, on one GPU.
+"""Where the port's loss-and-gradient step spends its device time, on one GPU.
 
-    python3 scripts/torch_grad_breakdown.py [--scene sphere] [--res 512]
-        [--spp 8] [--bounces 5] [--rr-after 3] [--top 25]
+    python3 scripts/torch_grad_breakdown.py
 
-Builds ``DifferentiableRenderer(mode="auto")`` (K1) on a scene of
-``scenes/`` and
+The gradient counterpart of ``torch_frame_breakdown.py``, at the shape of
+``chip_smoke.py``'s phase ``grad`` (sphere 512x512, 8 spp, 5 bounces, RR
+after 3, zero target; that phase times the captured steps). Builds
+``DifferentiableRenderer(mode="auto")`` (K1) and profiles one eager forward
+(no gradient) and one eager forward and backward with ``torch.profiler``:
+the kernels' device time of each, so the backward's share is their
+difference, and the operators of the second ranked by the device time of
+the kernels they launched (``key_averages``), with K1's launches and its
+kernels' device time.
 
-1. times the compiled steps (``loss_only`` and ``loss_and_grad``, each
-   replayed from its CUDA graph, best of 3) and the eager step
-   (``loss_and_grad_eager``), host clock around work that ends in a
-   synchronise;
-2. profiles one eager forward (no gradient) and one eager forward and
-   backward with ``torch.profiler``: the kernels' device time of each, so
-   the backward's share is their difference, and the operators of the
-   second ranked by the device time of the kernels they launched
-   (``key_averages``), with K1's launches and its kernels' device time.
-
-Prints one JSON object per section and the card's name and power limit
-(nvidia-smi); writes the ranked table to
+Prints one JSON object for the totals, one per ranked operator and the
+card's name and power limit (nvidia-smi); writes the ranked table to
 ``chiprun_out/torch_grad_breakdown.json``. Without a CUDA device it exits 1.
 """
 
 from __future__ import annotations
 
-import argparse
 import json
 import os
-import subprocess
 import sys
-import time
 
 import numpy as np
 import torch
@@ -37,23 +30,7 @@ from torch.autograd import DeviceType
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 
-
-def _smi() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
-
-
-def _best_ms(fn, reps: int = 3) -> list:
-    out = []
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        out.append((time.perf_counter() - t0) * 1e3)
-    return out
+TOP = 25  # operators in the ranked table
 
 
 def _device_us(prof) -> float:
@@ -63,50 +40,24 @@ def _device_us(prof) -> float:
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--scene", default="sphere")
-    ap.add_argument("--res", type=int, default=512)
-    ap.add_argument("--spp", type=int, default=8)
-    ap.add_argument("--bounces", type=int, default=5)
-    ap.add_argument("--rr-after", type=int, default=3)
-    ap.add_argument("--top", type=int, default=25)
-    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_grad_breakdown: no CUDA device", file=sys.stderr)
         return 1
 
     from torch.profiler import ProfilerActivity, profile
 
-    from polaris_tpu_torch.asset.compiler.compiler import compile_scene
-    from polaris_tpu_torch.asset.wavefront import read_scene
+    import chip_smoke as cs
     from polaris_tpu_torch.ops import intersect_cuda
     from polaris_tpu_torch.render.grad import (
         DifferentiableRenderer, loss_and_grad_eager, render_loss,
     )
     from polaris_tpu_torch.render.options import RenderOptions
 
-    smi = _smi()
-    scene = compile_scene(read_scene(os.path.join(HERE, "scenes", f"{args.scene}.obj")))
-    opt = RenderOptions(width=args.res, height=args.res, spp=args.spp,
-                        num_bounces=args.bounces, min_bounces_for_rr=args.rr_after)
-    r = DifferentiableRenderer(scene, mode="auto")
+    smi = cs.nvidia_smi_line()
+    opt = RenderOptions(width=cs.FRAME, height=cs.FRAME, spp=cs.GRAD_SPP,
+                        num_bounces=cs.BOUNCES, min_bounces_for_rr=cs.RR_AFTER)
+    r = DifferentiableRenderer(cs.load_scene("sphere"), mode="auto")
     target = np.zeros((opt.height, opt.width, 3), np.float32)
-
-    torch.cuda.reset_peak_memory_stats()
-    r.loss_only(opt, target)
-    r.loss_and_grad(opt, target)
-    peak = torch.cuda.max_memory_allocated()
-    fwd = _best_ms(lambda: r.loss_only(opt, target))
-    step = _best_ms(lambda: r.loss_and_grad(opt, target))
-    eager = _best_ms(lambda: loss_and_grad_eager(r, opt, target), reps=1)
-    print(json.dumps({
-        "section": "steps", "card": smi, "scene": args.scene,
-        "frame": f"{opt.width}x{opt.height}x{opt.spp}spp", "bounces": opt.num_bounces,
-        "loss_only_ms": fwd, "loss_and_grad_ms": step, "eager_step_ms": eager,
-        "backward_forward_ratio": min(step) / min(fwd), "capture_s": r.capture_seconds,
-        "peak_mem_bytes": peak,
-    }), flush=True)
-
     frustum, eye = r._camera_tensors(opt, None)
     tgt = r._target(target)
 
@@ -115,7 +66,8 @@ def main() -> int:
             render_loss(r, opt, seed=opt.seed, target=tgt, frustum=frustum, eye=eye)
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    forward()
+    forward()  # the warm-ups load the kernels
+    loss_and_grad_eager(r, opt, target)
     torch.cuda.synchronize()
     with profile(activities=acts) as p_fwd:
         forward()
@@ -133,21 +85,23 @@ def main() -> int:
         {"op": e.key, "self_device_ms": e.self_device_time_total / 1e3,
          "share": e.self_device_time_total / step_us if step_us else None,
          "calls": e.count}
-        for e in rows[: args.top] if e.self_device_time_total > 0
+        for e in rows[:TOP] if e.self_device_time_total > 0
     ]
     # K1 is launched through ctypes, under no operator: its kernels by name
     k1_us = sum(e.self_device_time_total for e in p_step.key_averages()
                 if e.device_type == DeviceType.CUDA and "persistent_kernel" in e.key)
     print(json.dumps({
-        "section": "profile", "card": smi, "forward_device_ms": fwd_us / 1e3,
-        "step_device_ms": step_us / 1e3, "backward_device_ms": (step_us - fwd_us) / 1e3,
+        "section": "profile", "card": smi, "scene": "sphere",
+        "frame": f"{opt.width}x{opt.height}x{opt.spp}spp", "bounces": opt.num_bounces,
+        "forward_device_ms": fwd_us / 1e3, "step_device_ms": step_us / 1e3,
+        "backward_device_ms": (step_us - fwd_us) / 1e3,
         "k1_device_ms": k1_us / 1e3, "k1_launches": k1,
     }), flush=True)
     for row in table:
         print(json.dumps(row), flush=True)
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "torch_grad_breakdown.json"), "w") as f:
-        json.dump({"card": smi, "args": vars(args), "table": table}, f, indent=1)
+        json.dump({"card": smi, "table": table}, f, indent=1)
     print(smi, flush=True)
     return 0
 

@@ -11,6 +11,9 @@ against the JAX package's, on the CPU.
   brightest neighbour is the -inf padding); the port keeps the pixel. The
   test records that deliberate divergence.
 * A gradient through the filter against ``jax.grad`` of the JAX filter.
+* The guide and filter programs against ``guide_images`` and
+  ``filter_accum`` called op by op, at two cameras and two accumulators:
+  bit for bit.
 """
 
 from dataclasses import fields
@@ -126,3 +129,37 @@ def test_gradient_through_the_filter_matches_jax():
     torch.sum(atrous_denoise(despeckle(x), n, d, iterations=2) ** 2).backward()
     assert np.abs(want).max() > 0
     np.testing.assert_allclose(x.grad.numpy(), want, rtol=0, atol=1e-4 * np.abs(want).max())
+
+
+def test_programs_equal_the_reference_functions(sphere_scene):
+    """Each call fills the programs' static inputs anew: two cameras, two
+    accumulators and two sets of bandwidths give the reference functions'
+    results, bit for bit."""
+    from polaris_tpu_torch.asset.camera import Camera
+    from polaris_tpu_torch.render.denoise import (
+        denoise_accum, filter_accum, guide_images, render_guides,
+    )
+    from polaris_tpu_torch.render.integrator import TorchRenderer
+    from polaris_tpu_torch.render.options import RenderOptions
+
+    r = TorchRenderer({f.name: getattr(sphere_scene, f.name) for f in fields(sphere_scene)},
+                      device="cpu", mode="auto")
+    opt = RenderOptions(width=24, height=16, spp=2, num_bounces=2, min_bounces_for_rr=3)
+    moved = Camera.from_scene(r.scene, opt.width, opt.height)
+    moved.move("left", 0.3)
+    runs = [(None, 2, dict(c_phi=0.4, n_phi=0.25, d_phi=0.05)),
+            (moved, 3, dict(c_phi=0.3, n_phi=0.2, d_phi=0.1))]
+    outs = []
+    for seed, (camera, spp, bw) in enumerate(runs):
+        accum = torch.from_numpy(_images((opt.height, opt.width), 10 + seed)[0])
+        nrm, z = render_guides(r, opt, camera)
+        want_nrm, want_z = guide_images(r, *r._camera_tensors(opt, camera), opt.width,
+                                        opt.height)
+        assert torch.equal(nrm, want_nrm) and torch.equal(z, want_z)
+        got = denoise_accum(r, opt, accum, spp, camera, iterations=2, **bw)
+        # the program reads the bandwidths and the count from 0-d tensors
+        want = filter_accum(accum, want_nrm, want_z, torch.tensor(float(spp)), iterations=2,
+                            fireflies=True, **{k: torch.tensor(v) for k, v in bw.items()})
+        assert torch.equal(got, want)
+        outs.append((nrm, got))
+    assert not torch.equal(outs[0][0], outs[1][0]) and not torch.equal(outs[0][1], outs[1][1])
