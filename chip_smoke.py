@@ -106,6 +106,27 @@ printing one JSON line:
             with two accumulators; guide-pass and filter ms; the MSE of the
             tonemapped image against a 256-spp render before and after the
             filter (it must drop)
+  viewer    sphere 512x512, passes of 16 spp, path regeneration, through K1:
+            ``ProgressiveRenderer`` after each of 4 passes equal to the sum of
+            ``render_accum_offset`` partials bit for bit, and near one 64-spp
+            partial; the HTTP viewer on a port the OS picks (``/frame.png``
+            decodes to the last image, ``/stats``, a ``/move`` whose next pass
+            equals a fresh render at the new camera bit for bit); the eight
+            debug channels through K1 against K1's plain version at 128x128
+            bit for bit, each timed at 512x512; ``default_pipeline`` equal to
+            ``render``, a denoise -> tonemap -> PNG chain; ``profiling.trace``
+            names K1's entry points; pass ms and PNG encode ms
+  parallel  sphere 512x512x16spp, the sequential loop, through K1 on the one
+            card (times are each code path's cost, not scaling): four
+            128-row bands equal to ``render_accum`` bit for bit; a pool of
+            two workers on the card (a renderer and a stream each), 4 frames
+            each equal to the single renderer's, K1's launches = the trips
+            the workers' graphs report, the heights feedback settles on;
+            meshes 4x1 (bit for bit) and 2x2; the 2x2 mesh's train step at
+            128x128x4spp against ``DifferentiableRenderer``'s loss and SGD
+            step; ``spawn_local_processes``: two ``gloo`` ranks on the card
+            (render 2x1 bit for bit, the train step 2x1 against the
+            one-process mesh's), one ``nccl`` rank; frame ms of each
 
 The last three lines of the output are: the card's name and power limit as
 nvidia-smi prints them, one JSON object ``{"kernels": [...]}`` with the twelve
@@ -172,6 +193,19 @@ TRAIN_STEPS, TRAIN_LR, TRAIN_FACTOR = 5, 3e-2, 0.55
 # the denoiser on cornell 512x512: 16 spp, 4 levels, a 256-spp reference
 DENOISE_SPP, DENOISE_ITERS, DENOISE_REF_SPP = 16, 4, 256
 DENOISE_YAW = 0.05  # radians: the second camera of the denoiser's replay check
+# the viewer and the parallel layer at the flagship's full width: passes of
+# 16 spp (4 of them, then a 64-spp partial), the debug channels held against
+# K1's plain version at 128x128; the 64-spp check adds rtol 1e-6 to atol 1e-4:
+# sphere's accumulator reaches about 260 on the light, where one float32 ulp
+# is 3.05e-5, and a 64-term sum in another association moves it by a few
+VIEW_SPP, VIEW_PASSES, DEBUG_CHECK = 16, 4, 128
+PROG_ATOL, PROG_RTOL = 1e-4, 1e-6
+POOL_FRAMES, POOL_QUANTUM = 4, 32
+MESH_RTOL = 1e-5  # a split of the samples: like tests/test_sharding.py
+# the distributed train step: 128x128, 4 spp, zero target, SGD at MESH_LR
+TRAIN_FRAME, TRAIN_SPP, MESH_LR = 128, 4, 0.1
+HTTP_TIMEOUT, SPAWN_TIMEOUT = 30, 300
+SMOKE_DIR = os.path.join(HERE, "build", "smoke")  # files the phases write
 # the scenes of the mode-by-scene grid; the two mid-size terrains (grids 100
 # and 200) are there to show whether 'auto' should leave K1 at some size
 GRID_SCENES = (
@@ -1620,6 +1654,383 @@ def phase_denoise(cornell, smi: str):
     )
 
 
+def decode_png(data: bytes) -> np.ndarray:
+    """The pixels of an 8-bit RGB PNG whose rows all use filter 0, which is
+    what ``utils/png.py`` writes, every chunk's CRC checked: a decoder of the
+    script's own, as the card's machine has no PIL. Fails on anything else."""
+    import struct
+    import zlib
+
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        fail("png: no PNG signature")
+    pos, header, idat = 8, None, b""
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        (crc,) = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
+        if zlib.crc32(tag + body) & 0xFFFFFFFF != crc:
+            fail(f"png: bad CRC in chunk {tag!r}")
+        if tag == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat += body
+        elif tag == b"IEND":
+            break
+        pos += 12 + n
+    if header is None or header[2:] != (8, 2, 0, 0, 0):
+        fail(f"png: not 8-bit RGB without interlace: {header}")
+    w, h = header[:2]
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    if rows[:, 0].any():
+        fail("png: a row uses a filter other than 0")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def k1_launches(counts: dict, label: str) -> dict:
+    """K1's launches in ``counts`` (``read_launches``); fails if the path ran
+    another kernel or never ran K1's closest hit."""
+    if set(counts) - {"K1"} or not counts.get("K1", {}).get("closest_hit"):
+        fail(f"{label}: launched {counts}, expected K1 only, its closest hit at least once")
+    return counts["K1"]
+
+
+def phase_viewer(scenes, smi: str):
+    """The viewer and tooling at the flagship's full width (sphere 512x512,
+    VIEW_SPP spp a pass, 5 bounces, RR after 3, mode 'auto', path
+    regeneration), through K1:
+
+    * ``ProgressiveRenderer``: VIEW_PASSES passes; after each the
+      accumulator equals the sum of ``render_accum_offset`` partials at
+      offsets 0, 16, 32, ... bit for bit, and after all of them it is within
+      PROG_ATOL + PROG_RTOL * |value| of one 64-spp partial; pass ms and PNG
+      encode ms; K1's launches over the passes = the trips they ran.
+    * The HTTP viewer on a port the OS picks: ``/frame.png`` decodes to the
+      last u8 image, ``/stats`` carries the pass history and the block rows;
+      a ``/move`` resets the accumulation at the next pass, whose
+      accumulator equals a fresh ``render_accum_offset`` at the new camera
+      bit for bit.
+    * Every debug channel through K1 against the same channel through K1's
+      plain version at DEBUG_CHECK x DEBUG_CHECK, bit for bit; each timed at
+      512x512.
+    * ``default_pipeline().run`` equal to ``render`` bit for bit; the chain
+      denoise -> tonemap -> save PNG writes a file that decodes to the
+      chain's image.
+    * ``profiling.trace`` around a debug channel writes a trace that names
+      K1's two entry points and holds device time."""
+    import urllib.request
+    from dataclasses import replace
+
+    from polaris_tpu_torch.ops import intersect_cuda
+    from polaris_tpu_torch.render.debug import DEBUG_CHANNELS, render_debug
+    from polaris_tpu_torch.render.options import RenderOptions
+    from polaris_tpu_torch.render.pipeline import (
+        Pipeline, default_pipeline, denoise_stage, save_png_stage, tonemap_stage,
+    )
+    from polaris_tpu_torch.render.progressive import ProgressiveRenderer, _start_server
+    from polaris_tpu_torch.utils.profiling import TRACE_FILE, trace
+
+    os.makedirs(SMOKE_DIR, exist_ok=True)
+    sphere = scenes["sphere"]
+    opt = RenderOptions(width=FRAME, height=FRAME, spp=VIEW_SPP, num_bounces=BOUNCES,
+                        min_bounces_for_rr=RR_AFTER)
+    prog = ProgressiveRenderer(sphere, opt, mode="auto", regen=True)
+    r = prog.renderer
+    accums, pass_ms, encode_ms, trips = [], [], [], 0
+    reset_launches()
+    for _ in range(VIEW_PASSES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = prog.step()
+        pass_ms.append((time.perf_counter() - t0) * 1e3)
+        trips += r.last_trips_run
+        accums.append(prog.accum.clone())
+        prog.pass_history.append((prog.accumulated_samples, pass_ms[-1]))
+        prog.block_history.append(prog.block_assignment())
+        t0 = time.perf_counter()
+        prog._publish(img)
+        encode_ms.append((time.perf_counter() - t0) * 1e3)
+    passes_k1 = k1_launches(read_launches(), "viewer passes")
+    if passes_k1["closest_hit"] != trips:
+        fail(f"viewer: {passes_k1} K1 launches over passes that ran {trips} trips")
+    want = torch.zeros_like(prog.accum)
+    for k, got in enumerate(accums):
+        want = want + r.render_accum_offset(opt, sample_offset=k * VIEW_SPP)
+        if not torch.equal(got, want):
+            fail(f"viewer: the accumulator after pass {k + 1} is not the sum of its partials")
+    one = r.render_accum_offset(replace(opt, spp=VIEW_PASSES * VIEW_SPP))
+    diff = (prog.accum - one).abs()
+    if not bool((diff <= PROG_ATOL + PROG_RTOL * one.abs()).all()):
+        fail(f"viewer: {VIEW_PASSES} passes differ from one {VIEW_PASSES * VIEW_SPP}-spp "
+             f"partial by up to {float(diff.max())}")
+    if img.shape != (FRAME, FRAME, 3) or img.dtype != np.uint8 or not img.mean() > 1.0:
+        fail(f"viewer: unexpected image {img.shape} {img.dtype} mean {img.mean()}")
+
+    server = _start_server(prog, 0)
+    port = server.server_address[1]
+    try:
+        def get(path):
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                        timeout=HTTP_TIMEOUT) as resp:
+                return resp.status, resp.read()
+
+        status, data = get("/frame.png")
+        if status != 200 or not np.array_equal(decode_png(data), img):
+            fail("viewer: /frame.png does not decode to the last image")
+        stats = json.loads(get("/stats")[1])
+        if (len(stats["passes"]) != VIEW_PASSES or stats["blocks"][0]["height"] != FRAME
+                or stats["accumulated_samples"] != VIEW_PASSES * VIEW_SPP):
+            fail(f"viewer: /stats is {stats}")
+        if get("/move?dir=forward&step=0.25")[0] != 204:
+            fail("viewer: /move refused")
+        moved = prog._pending_camera
+        prog.step()
+        if prog.accumulated_samples != VIEW_SPP:
+            fail("viewer: the camera change did not reset the accumulation")
+        if not torch.equal(prog.accum, r.render_accum_offset(opt, moved)):
+            fail("viewer: the pass after /move is not a fresh render at the new camera")
+    finally:
+        server.shutdown()
+        server.server_close()
+
+    small = replace(opt, width=DEBUG_CHECK, height=DEBUG_CHECK)
+    P = r.closest.packed
+
+    def plain_closest(S, *rays):
+        return intersect_cuda.k1_plain(P, *rays, any_hit=False)
+
+    def plain_any(S, *rays):
+        return intersect_cuda.k1_plain(P, *rays, any_hit=True).mask
+
+    debug = {}
+    for ch in DEBUG_CHANNELS:
+        got = render_debug(r, small, ch)
+        plain = render_debug(r, small, ch, closest=plain_closest, any_hit=plain_any)
+        if not torch.equal(got, plain):
+            fail(f"viewer: debug channel {ch} through K1 differs from K1's plain version at "
+                 f"{int((got != plain).any(-1).sum())} pixels")
+        out, ms, counts = timed_runs(lambda: render_debug(r, opt, ch), 3)
+        if out.shape != (FRAME, FRAME, 3) or not bool(torch.isfinite(out).all()):
+            fail(f"viewer: debug channel {ch}: shape {tuple(out.shape)} or not finite")
+        debug[ch] = {"ms": min(ms), "ms_all": ms, "launches": k1_launches(counts, f"debug {ch}"),
+                     "mean": float(out.mean())}
+
+    piped = default_pipeline().run(r, opt)
+    if not np.array_equal(piped, r.render(opt)):
+        fail("viewer: default_pipeline().run differs from render")
+    png_path = os.path.join(SMOKE_DIR, "pipeline.png")
+    chain = Pipeline(post_process=[denoise_stage(), tonemap_stage(), save_png_stage(png_path)])
+    chained, chain_ms, _ = timed_runs(lambda: chain.run(r, opt), 1)
+    with open(png_path, "rb") as f:
+        if not np.array_equal(decode_png(f.read()),
+                              (np.clip(chained, 0, 1) * 255).astype(np.uint8)):
+            fail("viewer: the pipeline's PNG does not decode to its image")
+
+    logdir = os.path.join(SMOKE_DIR, "trace")
+    with trace(logdir) as prof:
+        render_debug(r, opt, "emissive_vis")
+        torch.cuda.synchronize()
+    with open(os.path.join(logdir, TRACE_FILE)) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    named = sorted(n for n in names if n in ("polaris_closest_hit", "polaris_any_hit"))
+    device_us = sum(getattr(a, "device_time_total", 0.0) for a in prof.key_averages())
+    if named != ["polaris_any_hit", "polaris_closest_hit"] or not device_us > 0:
+        fail(f"viewer: the trace names {named} and holds {device_us} us of device time")
+    emit(
+        "viewer", card=smi, scene="sphere", frame=f"{FRAME}x{FRAME}x{VIEW_SPP}spp a pass",
+        passes=VIEW_PASSES, pass_ms=pass_ms, png_encode_ms=encode_ms,
+        png_bytes=len(prog._latest_png), pass_launches=passes_k1, pass_trips=trips,
+        partials_equal=True, vs_one_partial_max_abs=float(diff.max()),
+        server_port=port, move_reset_equal=True, debug_check=f"{DEBUG_CHECK}x{DEBUG_CHECK}",
+        debug=debug, pipeline_equal=True, pipeline_chain_ms=chain_ms[0],
+        trace_names=named, trace_device_ms=device_us / 1e3,
+    )
+
+
+def phase_parallel(scenes, smi: str):
+    """The parallel layer at the flagship's full width (sphere 512x512,
+    VIEW_SPP spp, 5 bounces, RR after 3, mode 'auto', the sequential sample
+    loop, which bands run), through K1, on the one card: these times measure
+    what each code path costs, not scaling.
+
+    * Four bands of 128 rows, stacked, equal ``render_accum`` bit for bit.
+    * A pool of two ``BandWorker``s on the card (``make_device_pool`` with the
+      card named twice: a renderer and a stream each), POOL_FRAMES frames,
+      each equal to the single renderer's bit for bit, every worker's time
+      measured, K1's closest-hit launches = the trips the workers' graphs
+      report; the heights feedback settles on.
+    * ``make_mesh(4, 1)`` on the card four times equal to the single
+      renderer bit for bit, ``make_mesh(2, 2)`` within MESH_RTOL.
+    * The mesh's train step (2x2, TRAIN_FRAME^2, TRAIN_SPP spp, zero target,
+      SGD at MESH_LR): the loss and the parameters against
+      ``DifferentiableRenderer``'s loss and gradient with the same step.
+    * ``spawn_local_processes``: two ``gloo`` ranks on the card (NCCL puts
+      no two ranks on one card), render 2x1 equal to the single renderer bit
+      for bit, and the train step 2x1 against the one-process 2x1 mesh's;
+      then one ``nccl`` rank.
+    * Frame ms of the single renderer, the bands, the pool, the mesh and the
+      processes; train step ms."""
+    from dataclasses import replace
+
+    from polaris_tpu_torch.asset.scene_data import PARAM_FIELDS
+    from polaris_tpu_torch.parallel.mesh import DistributedRenderer, make_mesh
+    from polaris_tpu_torch.parallel.multihost import spawn_local_processes
+    from polaris_tpu_torch.parallel.workers import make_device_pool
+    from polaris_tpu_torch.render.grad import DifferentiableRenderer
+    from polaris_tpu_torch.render.integrator import TorchRenderer
+    from polaris_tpu_torch.render.options import RenderOptions
+
+    os.makedirs(SMOKE_DIR, exist_ok=True)
+    sphere = scenes["sphere"]
+    frame = dict(width=FRAME, height=FRAME, spp=VIEW_SPP, num_bounces=BOUNCES,
+                 min_bounces_for_rr=RR_AFTER)
+    opt = RenderOptions(**frame)
+    single = TorchRenderer(sphere, mode="auto")
+    card = single.device
+    want = single.render_accum(opt)
+    _, single_ms, single_counts = timed_runs(lambda: single.render_accum(opt), 3)
+    per_frame = VIEW_SPP * BOUNCES
+
+    rows = FRAME // 4
+
+    def bands():
+        return torch.cat([single.render_band_accum(opt, i * rows, rows) for i in range(4)])
+
+    bands()  # captures the band program
+    stacked, band_ms, band_counts = timed_runs(bands, 3)
+    if not torch.equal(stacked, want):
+        fail("parallel: four stacked bands differ from render_accum")
+    band_k1 = k1_launches(band_counts, "bands")
+    if band_k1["closest_hit"] != 4 * per_frame:
+        fail(f"parallel: bands launched {band_counts}, expected {4 * per_frame} closest hits")
+
+    pool = make_device_pool(sphere, mode="auto", devices=[card, card],
+                            height_quantum=POOL_QUANTUM)
+    pool_frames = []
+    for k in range(POOL_FRAMES):
+        got, ms, counts = timed_runs(lambda: pool.render_accum(opt), 1)
+        stats = pool.frame_stats
+        if not torch.equal(got.to(card), want):
+            fail(f"parallel: pool frame {k} differs from the single renderer")
+        if not all(w.render_time_ms > 0 for w in stats.workers if w.block_h):
+            fail(f"parallel: pool frame {k} has a worker without a measured time")
+        graph_trips = sum(w.renderer.last_trips_run
+                          for w, s in zip(pool.workers, stats.workers) if s.block_h)
+        launched = k1_launches(counts, f"pool frame {k}")
+        if launched["closest_hit"] != graph_trips:
+            fail(f"parallel: pool frame {k} launched {launched}, its workers' graphs "
+                 f"ran {graph_trips} trips")
+        pool_frames.append({
+            "frame_ms": ms[0], "total_ms": stats.total_ms,
+            "heights": [w.block_h for w in stats.workers],
+            "worker_ms": [w.render_time_ms for w in stats.workers],
+            "launches": launched, "graph_trips": graph_trips,
+        })
+
+    meshes = {}
+    for tile, sample in ((4, 1), (2, 2)):
+        dist = DistributedRenderer(sphere, make_mesh(tile, sample, [card] * (tile * sample)))
+        dist.render_accum(opt)  # captures
+        got, ms, counts = timed_runs(lambda: dist.render_accum(opt), 3)
+        if tile == 4 and not torch.equal(got, want):
+            fail("parallel: the 4x1 mesh differs from the single renderer")
+        if not torch.allclose(got, want, rtol=MESH_RTOL, atol=0.0):
+            fail(f"parallel: the {tile}x{sample} mesh differs from the single renderer by "
+                 f"{float((got - want).abs().max())}")
+        meshes[f"{tile}x{sample}"] = {
+            "frame_ms": min(ms), "frame_ms_all": ms, "equal": bool(torch.equal(got, want)),
+            "max_abs_diff": float((got - want).abs().max()),
+            "launches": k1_launches(counts, f"mesh {tile}x{sample}"),
+        }
+
+    small = RenderOptions(**dict(frame, width=TRAIN_FRAME, height=TRAIN_FRAME, spp=TRAIN_SPP))
+    target = np.zeros((TRAIN_FRAME, TRAIN_FRAME, 3), np.float32)
+    ref = DifferentiableRenderer(sphere, mode="auto")
+    ref_loss, grads, _ = ref.loss_and_grad(small, target)
+    before = {k: ref.params[k].detach().clone() for k in PARAM_FIELDS}
+
+    def against_ref(loss, params, label):
+        """``loss`` and ``params`` after a step against the single-device
+        loss and SGD step: loss within 1e-5 relative; each field within
+        MESH_LR * GRAD_TOL of its largest |gradient| (atomics order the
+        gradient's sums anew on every run), plus two float32 ulps of its
+        largest value."""
+        if abs(loss - ref_loss) > 1e-5 * abs(ref_loss):
+            fail(f"{label}: loss {loss} against the single device's {ref_loss}")
+        worst = 0.0
+        for k in PARAM_FIELDS:
+            step = before[k] - MESH_LR * grads[k]
+            tol = (MESH_LR * GRAD_TOL * float(grads[k].abs().max())
+                   + 2.0 ** -22 * float(before[k].abs().max()))
+            d = float((torch.as_tensor(params[k], device=card) - step).abs().max())
+            if d > tol:
+                fail(f"{label}: {k} is {d} from the single device's step (> {tol})")
+            worst = max(worst, d / tol if tol else 0.0)
+        return worst
+
+    mesh_train = DistributedRenderer(sphere, make_mesh(2, 2, [card] * 4))
+
+    def train_step():
+        return mesh_train.train_step(small, target, lr=MESH_LR)
+
+    train_loss, train_ms, train_counts = timed_runs(train_step, 1)
+    train_worst = against_ref(train_loss, mesh_train.params, "parallel: mesh train step")
+    step_k1 = k1_launches(train_counts, "mesh train step")
+    train_ms += timed_runs(train_step, 2)[1]  # two steps more, timed only
+
+    scene_zip = os.path.join(SMOKE_DIR, "sphere.zip")
+    sphere.save(scene_zip)
+    spawned = {}
+    for label, kw in (
+        ("gloo 2x1 render", dict(num_processes=2, backend="gloo", devices=[str(card)] * 2,
+                                 opt_kwargs=frame, frames=3)),
+        ("gloo 2x1 train", dict(num_processes=2, backend="gloo", devices=[str(card)] * 2,
+                                opt_kwargs=dict(frame, width=TRAIN_FRAME, height=TRAIN_FRAME,
+                                                spp=TRAIN_SPP), job="train", frames=2)),
+        ("nccl 1x1 render", dict(num_processes=1, backend="nccl", devices=[str(card)],
+                                 opt_kwargs=frame, frames=3)),
+    ):
+        tile = kw["num_processes"]
+        t0 = time.perf_counter()
+        got = spawn_local_processes(
+            scene_zip, tile=tile, sample=1, out_path=os.path.join(SMOKE_DIR, label.replace(" ", "_")),
+            mode="auto", timeout=SPAWN_TIMEOUT, **kw,
+        )
+        wall_s = time.perf_counter() - t0
+        row = {"frame_ms": float(min(got["ms"][1:])), "ms_all": got["ms"].tolist(),
+               "wall_s": wall_s}
+        if "train" in label:
+            # against the one-process 2x1 mesh's step, and so against the
+            # single device's
+            ref21 = DistributedRenderer(sphere, make_mesh(2, 1, [card] * 2))
+            ref21_loss = ref21.train_step(small, target, lr=MESH_LR)
+            row.update(loss=float(got["loss"]), one_process_loss=ref21_loss,
+                       one_process_worst_share_of_tol=against_ref(
+                           ref21_loss, ref21.params, "parallel: 2x1 mesh train step"),
+                       worst_share_of_tol=against_ref(
+                           float(got["loss"]), dict(ref21.params, mat_reflectance=got["refl"]),
+                           f"parallel: {label}"))
+        elif not np.array_equal(got["accum"], want.cpu().numpy()):
+            fail(f"parallel: {label} differs from the single renderer")
+        spawned[label] = row
+
+    emit(
+        "parallel", card=smi, scene="sphere", frame=f"{FRAME}x{FRAME}x{VIEW_SPP}spp",
+        note="one card: each time is the cost of its code path, not scaling",
+        single_ms=min(single_ms), single_ms_all=single_ms,
+        single_launches=k1_launches(single_counts, "single"),
+        bands={"rows": rows, "frame_ms": min(band_ms), "frame_ms_all": band_ms,
+               "launches": band_k1, "equal": True},
+        pool={"workers": [w.name for w in pool.workers], "quantum": POOL_QUANTUM,
+              "frames": pool_frames, "equal": True},
+        mesh=meshes,
+        train={"frame": f"{TRAIN_FRAME}x{TRAIN_FRAME}x{TRAIN_SPP}spp", "mesh": "2x2",
+               "loss": train_loss, "single_loss": ref_loss, "step_ms": min(train_ms),
+               "step_ms_all": train_ms, "worst_share_of_tol": train_worst,
+               "launches": step_k1},
+        processes=spawned,
+    )
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1707,6 +2118,8 @@ def main() -> int:
         phase_adaptive(scenes["cornell"], smi)
         phase_grad(scenes, smi)
         phase_denoise(scenes["cornell"], smi)
+        phase_viewer(scenes, smi)
+        phase_parallel(scenes, smi)
     for e in entries.values():
         e["launches"] = launches[e["kernel"]][
             FAMILIES[e["kernel"]]["keys"][1 if e["any_hit"] else 0]

@@ -10,6 +10,9 @@ hand-written CUDA under ``csrc/``. Imports ``torch`` only.
         upload_scene,                           # host -> device scene dict
         DifferentiableRenderer, Trainer,        # inverse rendering
         TrainConfig, denoise_accum,
+        ProgressiveRenderer,                    # live viewer
+        Pipeline, default_pipeline,             # post-process chain
+        DistributedRenderer, make_mesh,         # tile x sample mesh
     )
 """
 
@@ -54,6 +57,18 @@ def __getattr__(name):
         from .render.denoise import denoise_accum
 
         return denoise_accum
+    if name == "ProgressiveRenderer":
+        from .render.progressive import ProgressiveRenderer
+
+        return ProgressiveRenderer
+    if name in ("Pipeline", "default_pipeline"):
+        from .render import pipeline
+
+        return getattr(pipeline, name)
+    if name in ("DistributedRenderer", "make_mesh"):
+        from .parallel import mesh
+
+        return getattr(mesh, name)
     if name == "upload_scene":
         from .scene import upload_scene
 

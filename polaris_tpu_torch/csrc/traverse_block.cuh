@@ -103,10 +103,11 @@ struct BlockOccupancy {
 template <bool ANY_HIT, bool STAGED, class Scene>
 int launch_block(void (*kernel)(Scene, Rays), const Scene& sc, size_t smem,
                  const Rays& rays, void* stream) {
-    static int sms[MAX_DEVICES];
-    static bool attr_set[MAX_DEVICES];
-    static BlockOccupancy cache[8];
-    static int next = 0;
+    // one copy per host thread, as in launch_persistent
+    static thread_local int sms[MAX_DEVICES];
+    static thread_local bool attr_set[MAX_DEVICES];
+    static thread_local BlockOccupancy cache[8];
+    static thread_local int next = 0;
     if (rays.n <= 0) return (int)cudaSuccess;
     int dev = 0;
     cudaError_t err = cudaGetDevice(&dev);

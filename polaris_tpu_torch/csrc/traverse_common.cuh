@@ -566,10 +566,12 @@ struct Occupancy {
 template <bool ANY_HIT, int LEAF, bool STAGED, class Scene>
 int launch_persistent(const Scene& sc, const Rays& rays, unsigned* counters,
                       void* stream) {
-    static int sms[MAX_DEVICES];  // SM count per device, 0 until read
-    static bool attr_set[MAX_DEVICES];
-    static Occupancy cache[8];
-    static int next = 0;
+    // one copy per host thread: the renderers of a worker pool launch from
+    // threads of their own, with Python's lock released
+    static thread_local int sms[MAX_DEVICES];  // SM count per device, 0 until read
+    static thread_local bool attr_set[MAX_DEVICES];
+    static thread_local Occupancy cache[8];
+    static thread_local int next = 0;
     auto kernel = persistent_kernel<ANY_HIT, LEAF, STAGED, Scene>;
     int dev = 0;
     cudaError_t err = cudaGetDevice(&dev);

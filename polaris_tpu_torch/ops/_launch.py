@@ -6,12 +6,20 @@ end of ``csrc/traverse_common.cuh``): the scene's pointers and counts, then
 closest hit, ``found`` for any hit), then the stream. This module binds such
 a pair of entry points with ``ctypes``, validates the ray tensors, allocates
 the outputs with ``torch.empty``, launches on PyTorch's current stream
-without synchronising, and raises when the launch was refused.
+without synchronising, and raises when the launch was refused. Each launch is
+a ``torch.profiler`` span named after its C entry point, so a trace names
+the kernels a frame ran.
+
+Launches are counted per entry point in each kernel module's ``LAUNCHES``
+table, under ``LOCK``: renderers of a worker pool launch from threads of their
+own, and a CUDA graph's capture (``render/graph.py``) takes its launches back
+out of the tables, which must not take another thread's with them.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Dict, Sequence
 
 import numpy as np
@@ -26,6 +34,16 @@ from .intersect import Hit
 EXTRA_FLAGS = ("-fmad=false",)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+
+# guards every kernel module's LAUNCHES table; reentrant, because a thread
+# that captures a graph holds it while the step's wrappers count
+LOCK = threading.RLock()
+
+
+def count(table: Dict[str, int], key: str) -> None:
+    """One launch of entry point ``key`` into ``table`` (a ``LAUNCHES``)."""
+    with LOCK:
+        table[key] += 1
 
 
 def bind(source: str, closest_name: str, any_name: str, scene_argtypes: str):
@@ -88,7 +106,7 @@ def run_closest(fn, scene_args: Sequence, o, d, maxt, active) -> Hit:
     tri = torch.empty(n, dtype=torch.int32, device=o.device)
     inst = torch.empty(n, dtype=torch.int32, device=o.device)
     found = torch.empty(n, dtype=torch.bool, device=o.device)
-    with torch.cuda.device(o.device):
+    with torch.cuda.device(o.device), torch.profiler.record_function(fn.__name__):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(
             *scene_args, n, *rays,
@@ -103,7 +121,7 @@ def run_any(fn, scene_args: Sequence, o, d, maxt, active) -> torch.Tensor:
     """Launch an any-hit entry point on CUDA ray tensors; returns the mask."""
     n, rays = _ray_pointers(o, d, maxt, active)
     found = torch.empty(n, dtype=torch.bool, device=o.device)
-    with torch.cuda.device(o.device):
+    with torch.cuda.device(o.device), torch.profiler.record_function(fn.__name__):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(*scene_args, n, *rays, found.data_ptr(), stream)
     _raise_on(err, fn.__name__)
@@ -124,9 +142,10 @@ def persistent_counters(device) -> torch.Tensor:
     """The counters of a persistent launch on the current stream of
     ``device``, made (zeroed) on first use."""
     stream = torch.cuda.current_stream(device).cuda_stream
-    counters = _COUNTERS.get((device, stream))
-    if counters is None:
-        counters = _COUNTERS[device, stream] = torch.zeros(2, dtype=torch.int32, device=device)
+    with LOCK:  # made once: a graph keeps the address it captured
+        counters = _COUNTERS.get((device, stream))
+        if counters is None:
+            counters = _COUNTERS[device, stream] = torch.zeros(2, dtype=torch.int32, device=device)
     return counters
 
 

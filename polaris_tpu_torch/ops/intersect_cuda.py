@@ -304,7 +304,7 @@ def _closest(entry: int, key: str, leaf: str, P, o, d, maxt, active) -> Hit:
     if o.device.type != "cuda":
         return k1_plain(P, o, d, maxt, active, any_hit=False)
     hit = _launch.run_closest(load()[entry], _scene_args(P, o.device), o, d, maxt, active)
-    LAUNCHES[key] += 1
+    _launch.count(LAUNCHES, key)
     return hit
 
 
@@ -313,7 +313,7 @@ def _any(entry: int, key: str, leaf: str, P, o, d, maxt, active) -> torch.Tensor
     if o.device.type != "cuda":
         return k1_plain(P, o, d, maxt, active, any_hit=True).mask
     found = _launch.run_any(load()[entry], _scene_args(P, o.device), o, d, maxt, active)
-    LAUNCHES[key] += 1
+    _launch.count(LAUNCHES, key)
     return found
 
 

@@ -295,7 +295,7 @@ def closest_hit(P, o, d, maxt, active) -> Hit:
     if o.device.type != "cuda":
         return wide8_nodes_plain(P, o, d, maxt, active, any_hit=False)
     hit = _launch.run_closest(load()[0], _args(P, o.device), o, d, maxt, active)
-    LAUNCHES["closest_hit"] += 1
+    _launch.count(LAUNCHES, "closest_hit")
     return hit
 
 
@@ -304,5 +304,5 @@ def any_hit(P, o, d, maxt, active) -> torch.Tensor:
     if o.device.type != "cuda":
         return wide8_nodes_plain(P, o, d, maxt, active, any_hit=True).mask
     found = _launch.run_any(load()[1], _args(P, o.device), o, d, maxt, active)
-    LAUNCHES["any_hit"] += 1
+    _launch.count(LAUNCHES, "any_hit")
     return found

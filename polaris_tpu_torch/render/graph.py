@@ -22,6 +22,14 @@ The traversal wrappers count their launches in Python, which a capture
 runs once. So the capture's counts are taken back out of the modules'
 ``LAUNCHES`` tables and kept as the graph's launches per entry point, and
 each replay adds them: the tables count the launches that ran.
+
+Renderers of a worker pool (``parallel/workers.py``) run their steps from
+threads of their own, two of them on one card if the pool says so. So one
+capture runs at a time in the process, holding ``_launch.LOCK``, under which
+every wrapper counts: another thread's launches wait to be counted until the
+capture's own are taken out. And a capture fails only on this thread's
+unsafe calls (``thread_local`` mode): the other threads go on launching,
+allocating and synchronising their own streams meanwhile.
 """
 
 from __future__ import annotations
@@ -62,9 +70,10 @@ class Step:
             self._capture()
         else:
             self.graph.replay()
-            tables = _launch.launch_tables()
-            for i, key, count in self.launches:
-                tables[i][key] += count
+            with _launch.LOCK:
+                tables = _launch.launch_tables()
+                for i, key, count in self.launches:
+                    tables[i][key] += count
 
     def _capture(self) -> None:
         current = torch.cuda.current_stream(self.device)
@@ -72,19 +81,23 @@ class Step:
         with torch.cuda.stream(self.stream):
             self.fn()  # the warm-up: a real step
         current.wait_stream(self.stream)
-        tables = _launch.launch_tables()
-        before = [dict(t) for t in tables]
         graph = torch.cuda.CUDAGraph()
-        t0 = time.perf_counter()
-        try:
-            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
-                self.fn()
-        finally:
-            self.launches = [
-                (i, key, t[key] - before[i][key])
-                for i, t in enumerate(tables) for key in t if t[key] != before[i][key]
-            ]
-            for t, counts in zip(tables, before):
-                t.update(counts)
-        self.capture_seconds = time.perf_counter() - t0
+        with _launch.LOCK:
+            tables = _launch.launch_tables()
+            before = [dict(t) for t in tables]
+            t0 = time.perf_counter()
+            capture = torch.cuda.graph(graph, pool=self.pool, stream=self.stream)
+            # read by the context manager when it begins the capture
+            capture.capture_error_mode = "thread_local"
+            try:
+                with capture:
+                    self.fn()
+            finally:
+                self.launches = [
+                    (i, key, t[key] - before[i][key])
+                    for i, t in enumerate(tables) for key in t if t[key] != before[i][key]
+                ]
+                for t, counts in zip(tables, before):
+                    t.update(counts)
+            self.capture_seconds = time.perf_counter() - t0
         self.graph = graph

@@ -201,6 +201,41 @@ def _primary(*, seed, frustum, eye, width, height, pixel_x, pixel_y, pixel_idx, 
     return gen_rays(frustum, eye, width, height, pixel_x, pixel_y, U0)
 
 
+def band_pixels(xs, ys, row0, width: int):
+    """Full-frame ``(pixel_x, pixel_y, pixel_idx)`` of the lanes of a row
+    band whose top row is ``row0`` (a Python int or a 0-d tensor), from the
+    band's own lane order ``xs``, ``ys``. The full frame's pixel index keys
+    the RNG, so a band renders exactly the same rows of a full frame."""
+    ys = ys + row0
+    return xs, ys, ys.to(torch.int64) * width + xs.to(torch.int64)
+
+
+def render_band_eager(r, S: Dict, opt: RenderOptions, *, y0, band_h: int, frustum, eye,
+                      sample_offset: int = 0) -> torch.Tensor:
+    """Rows ``[y0, y0 + band_h)``: ``opt.spp`` samples from ``sample_offset``
+    of ``render_sample_block`` over the band's lanes, summed from zeros in
+    sample order and brought to pixel order, [band_h, W, 3]. The band
+    program's loop run op by op with the scene tensors ``S`` (parameter
+    tensors that carry a gradient, say): the forward of the distributed
+    train step (``parallel/mesh.py``)."""
+    W = opt.width
+    xs, ys, _, inv = r._pixel_order(W, band_h)
+    px, py, pix = band_pixels(xs, ys, y0, W)
+    accum = torch.zeros((W * band_h, 3), dtype=torch.float32, device=r.device)
+    for s in range(opt.spp):
+        accum = accum + render_sample_block(
+            S, r.closest, r.any_hit, frustum=frustum, eye=eye, width=W, height=opt.height,
+            pixel_x=px, pixel_y=py, pixel_idx=pix, sample_idx=sample_offset + s,
+            seed=int(opt.seed) & 0xFFFFFFFF, num_bounces=opt.num_bounces,
+            min_bounces_for_rr=opt.min_bounces_for_rr, num_emissives=r.num_emissives,
+            scene_diffuse_mat=r.scene_diffuse_mat, material_depth=r.material_depth,
+            rr_tile_coherent=opt.rr_tile_coherent, closest_bounce=r.closest_bounce,
+        )
+    if inv is not None:
+        accum = torch.index_select(accum, 0, inv)
+    return accum.reshape(band_h, W, 3)
+
+
 # the fields of the regeneration loop's carry (the JAX carry less its trip
 # counter, which the compiled driver keeps beside it)
 REGEN_FIELDS = ("ray_o", "ray_d", "throughput", "flags", "alive", "radiance", "s", "b")
@@ -448,6 +483,35 @@ class _SampleProgram(_Program):
         self.sample = self.step(sample)
 
 
+class _BandProgram(_Program):
+    """The sequential sample loop over a row band of ``band_h`` rows, the JAX
+    package's ``_get_band_fn``: one step is one sample of every lane of the
+    band, added to a partial summed from zero. The lanes walk the band in
+    its own blocked order; the band's top row ``row0`` is a device input like
+    the seed, the camera and the sample offset, so one program serves every
+    band of its height."""
+
+    def __init__(self, r, opt, band_h: int):
+        # the lanes of a band_h-row frame; raygen keeps the full frame's height
+        super().__init__(r, replace(opt, height=band_h))
+        self.row0 = torch.zeros((), dtype=torch.int64, device=r.device)
+        self.part = torch.zeros((self.n, 3), dtype=torch.float32, device=r.device)
+        xs, ys = self.frame["pixel_x"], self.frame["pixel_y"]
+
+        def sample():
+            px, py, pix = band_pixels(xs, ys, self.row0, opt.width)
+            common = dict(self.common, height=opt.height, pixel_x=px, pixel_y=py, pixel_idx=pix)
+            self.part.add_(
+                render_sample_block(
+                    r.S, r.closest, r.any_hit, sample_idx=self.offset,
+                    closest_bounce=r.closest_bounce, **common,
+                )
+            )
+            self.offset.add_(1)
+
+        self.sample = self.step(sample)
+
+
 class _AdaptiveProgram(_Program):
     """One chunk of ``chunk`` samples of adaptive sampling as one step: the
     blocks still drawing samples (``block_active``) trace, the stopped
@@ -574,6 +638,7 @@ class TorchRenderer:
         self._order_cache: Dict = {}
         self._carry_cache: Dict = {}
         self.last_render_ms = 0.0
+        self.last_device = str(self.device)  # the progressive viewer's block rows name it
         # the last frame's loop: trips that had a live lane (the eager
         # loop's count), trips run (overshoot included: one closest-hit
         # launch each) and reads of a device value by the host
@@ -711,8 +776,16 @@ class TorchRenderer:
         a = (accum[inv] if inv is not None else accum.clone()).reshape(opt.height, opt.width, 3)
         if emit == "f32":
             return a
-        scale = float(np.float32(1.0 / opt.spp) * np.float32(opt.exposure))
-        img = tonemap_reinhard(a, scale, 1.0)
+        return self.tonemap_u8(a, 1.0 / opt.spp, opt.exposure)
+
+    @staticmethod
+    def tonemap_u8(accum, sample_weight, exposure) -> torch.Tensor:
+        """``accum`` [H, W, 3] tonemapped with the weight ``sample_weight``
+        times ``exposure`` (one float32 product, as the JAX package's
+        ``tonemap_u8`` multiplies its two float32 scalars) and quantized to
+        uint8 (truncated), on its device."""
+        scale = float(np.float32(sample_weight) * np.float32(exposure))
+        img = tonemap_reinhard(accum, scale, 1.0)
         return (torch.clamp(img, 0.0, 1.0) * 255.0).to(torch.uint8)
 
     # ----- public API -----
@@ -764,6 +837,65 @@ class TorchRenderer:
             self._end_frame()
         self.last_render_ms = t.ms
         return out
+
+    # ----- row bands: the work unit of the worker pool and the mesh -----
+
+    @torch.no_grad()
+    def render_band_accum(
+        self,
+        opt: RenderOptions,
+        y0: int,
+        band_h: int,
+        camera: Optional[Camera] = None,
+        sample_offset: int = 0,
+    ) -> torch.Tensor:
+        """Render rows ``[y0, y0 + band_h)`` of the frame, the work unit a
+        ``BlockRequest`` describes (``render/scheduler.py``): ``opt.spp``
+        samples from ``sample_offset`` through the sequential sample loop, in
+        chunks of ``spp_per_launch`` added to a device accumulator as
+        ``render_accum`` adds them, so the band equals those rows of a
+        ``render_accum`` frame of the sequential loop (``regen=False``) bit
+        for bit, whichever loop this renderer runs. Returns [band_h, W, 3] f32 on the
+        renderer's device; ``last_render_ms`` runs until the band's work on
+        the current stream is done."""
+        with Timer() as t:
+            out = self._render_band(opt, y0, band_h, *self._camera_tensors(opt, camera),
+                                    sample_offset)
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
+        self.last_render_ms = t.ms
+        return out
+
+    def _render_band(self, opt: RenderOptions, y0: int, band_h: int, frustum, eye,
+                     sample_offset: int) -> torch.Tensor:
+        """``render_band_accum``'s work, queued on the current stream: the
+        device work is not waited for."""
+        if not (0 <= y0 and band_h > 0 and y0 + band_h <= opt.height):
+            raise ValueError(f"rows [{y0}, {y0 + band_h}) are not inside a frame of {opt.height}")
+        W = opt.width
+        accum = None
+        done = 0
+        while done < opt.spp:
+            chunk = min(self.spp_per_launch, opt.spp - done)
+            key = ("band", W, opt.height, band_h, chunk, opt.num_bounces,
+                   opt.min_bounces_for_rr, opt.rr_tile_coherent)
+            prog = self.program(key, lambda: _BandProgram(self, replace(opt, spp=chunk), band_h))
+            prog.set(opt.seed, frustum, eye, sample_offset + done)
+            prog.row0.fill_(int(y0))
+            prog.part.zero_()
+            for _ in range(chunk):
+                prog.sample()
+            if chunk == opt.spp:
+                accum = prog.part
+            else:
+                if accum is None:
+                    accum = torch.zeros_like(prog.part)
+                accum.add_(prog.part)
+            done += chunk
+        self.last_trips = self.last_trips_run = opt.spp * opt.num_bounces
+        self.last_host_syncs = 0
+        inv = self._pixel_order(W, band_h)[3]
+        return (accum[inv] if inv is not None else accum.clone()).reshape(band_h, W, 3)
 
     # ----- adaptive per-block sampling -----
     #
@@ -845,13 +977,16 @@ class TorchRenderer:
 
 
 @torch.no_grad()
-def render_blocked_eager(r: TorchRenderer, opt: RenderOptions, camera: Optional[Camera] = None):
+def render_blocked_eager(r: TorchRenderer, opt: RenderOptions, camera: Optional[Camera] = None,
+                         *, closest=None, any_hit=None):
     """``r``'s ``render_accum`` / ``render_u8`` frame through the eager loop
     functions, every op launched on its own and the regeneration loop's stop
     test read every trip: the same samples, chunks and additions as ``r``'s
     compiled driver. The reference that driver is held against, bit for
-    bit, and the eager baseline of its time. Returns (accumulator in blocked
-    lane order, trips); ``r.finalize`` closes it."""
+    bit, and the eager baseline of its time. ``closest`` / ``any_hit``
+    replace the renderer's traversal (its plain version, say). Returns
+    (accumulator in blocked lane order, trips); ``r.finalize`` closes it."""
+    closest, any_hit = closest or r.closest, any_hit or r.any_hit
     frustum, eye = r._camera_tensors(opt, camera)
     xs, ys, pix, _ = r._pixel_order(opt.width, opt.height)
     common = dict(
@@ -866,12 +1001,12 @@ def render_blocked_eager(r: TorchRenderer, opt: RenderOptions, camera: Optional[
     def partial(offset: int, spp: int):
         if r.regen:
             return render_block_regen(
-                r.S, r.closest, r.any_hit, sample_offset=offset, spp=spp, **common
+                r.S, closest, any_hit, sample_offset=offset, spp=spp, **common
             )
         part = torch.zeros((n, 3), dtype=torch.float32, device=r.device)
         for s in range(spp):
             part = part + render_sample_block(
-                r.S, r.closest, r.any_hit, sample_idx=offset + s,
+                r.S, closest, any_hit, sample_idx=offset + s,
                 closest_bounce=r.closest_bounce, **common,
             )
         return part, spp * opt.num_bounces
