@@ -107,11 +107,12 @@ printing one JSON line:
             tonemapped image against a 256-spp render before and after the
             filter (it must drop)
   viewer    sphere 512x512, passes of 16 spp, path regeneration, through K1:
-            ``ProgressiveRenderer`` after each of 4 passes equal to the sum of
-            ``render_accum_offset`` partials bit for bit, and near one 64-spp
-            partial; the HTTP viewer on a port the OS picks (``/frame.png``
-            decodes to the last image, ``/stats``, a ``/move`` whose next pass
-            equals a fresh render at the new camera bit for bit); the eight
+            ``ProgressiveRenderer.run`` with its server and snapshots, after
+            each of 4 passes equal to the sum of ``render_accum_offset``
+            partials bit for bit, and near one 64-spp partial; a second
+            ``run`` whose server answers (``/frame.png`` decodes to the last
+            image, ``/stats``, ``/``) and takes a ``/move``, whose next pass
+            equals a fresh render at the new camera bit for bit; the eight
             debug channels through K1 against K1's plain version at 128x128
             bit for bit, each timed at 512x512; ``default_pipeline`` equal to
             ``render``, a denoise -> tonemap -> PNG chain; ``profiling.trace``
@@ -125,7 +126,7 @@ printing one JSON line:
             meshes 4x1 (bit for bit) and 2x2; the 2x2 mesh's train step at
             128x128x4spp against ``DifferentiableRenderer``'s loss and SGD
             step; ``spawn_local_processes``: two ``gloo`` ranks on the card
-            (render 2x1 bit for bit, the train step 2x1 against the
+            (render 2x1 bit for bit, the train step 2x1 and 1x2 against the
             one-process mesh's), one ``nccl`` rank; frame ms of each
 
 The last three lines of the output are: the card's name and power limit as
@@ -1699,16 +1700,19 @@ def phase_viewer(scenes, smi: str):
     VIEW_SPP spp a pass, 5 bounces, RR after 3, mode 'auto', path
     regeneration), through K1:
 
-    * ``ProgressiveRenderer``: VIEW_PASSES passes; after each the
+    * ``ProgressiveRenderer.run`` to VIEW_PASSES passes, with its server
+      on a free port and a snapshot after every pass; after each pass the
       accumulator equals the sum of ``render_accum_offset`` partials at
       offsets 0, 16, 32, ... bit for bit, and after all of them it is within
-      PROG_ATOL + PROG_RTOL * |value| of one 64-spp partial; pass ms and PNG
-      encode ms; K1's launches over the passes = the trips they ran.
-    * The HTTP viewer on a port the OS picks: ``/frame.png`` decodes to the
-      last u8 image, ``/stats`` carries the pass history and the block rows;
-      a ``/move`` resets the accumulation at the next pass, whose
-      accumulator equals a fresh ``render_accum_offset`` at the new camera
-      bit for bit.
+      PROG_ATOL + PROG_RTOL * |value| of one 64-spp partial; the pass ms
+      that run records; K1's launches over the passes = the trips they
+      ran; the snapshot decodes to the image run returns; the server is
+      shut down when run ends. PNG encode ms, timed on its own.
+    * A second ``run`` with its server: before its first pass
+      ``/frame.png`` decodes to the first run's last image, ``/stats``
+      carries its pass history and block rows, ``/`` serves the page, and a
+      ``/move`` resets the accumulation at that pass, whose accumulator
+      equals a fresh ``render_accum_offset`` at the new camera bit for bit.
     * Every debug channel through K1 against the same channel through K1's
       plain version at DEBUG_CHECK x DEBUG_CHECK, bit for bit; each timed at
       512x512.
@@ -1721,12 +1725,14 @@ def phase_viewer(scenes, smi: str):
     from dataclasses import replace
 
     from polaris_tpu_torch.ops import intersect_cuda
+    from polaris_tpu_torch.parallel.multihost import free_port
     from polaris_tpu_torch.render.debug import DEBUG_CHANNELS, render_debug
     from polaris_tpu_torch.render.options import RenderOptions
     from polaris_tpu_torch.render.pipeline import (
         Pipeline, default_pipeline, denoise_stage, save_png_stage, tonemap_stage,
     )
-    from polaris_tpu_torch.render.progressive import ProgressiveRenderer, _start_server
+    from polaris_tpu_torch.render.progressive import ProgressiveRenderer
+    from polaris_tpu_torch.utils.png import encode_png
     from polaris_tpu_torch.utils.profiling import TRACE_FILE, trace
 
     os.makedirs(SMOKE_DIR, exist_ok=True)
@@ -1735,62 +1741,106 @@ def phase_viewer(scenes, smi: str):
                         min_bounces_for_rr=RR_AFTER)
     prog = ProgressiveRenderer(sphere, opt, mode="auto", regen=True)
     r = prog.renderer
-    accums, pass_ms, encode_ms, trips = [], [], [], 0
+    snapshot = os.path.join(SMOKE_DIR, "progressive.png")
+    port = free_port()
+    # run's own loop calls prog.step; this wrapper runs the checks due
+    # before a pass, then the pass, and keeps what the pass left:
+    # (samples accumulated, the accumulator, the image, the camera)
+    seen, before_pass, trips = [], {}, [0]
+    step = prog.step
+
+    def traced_step():
+        check = before_pass.pop(len(seen), None)
+        if check is not None:
+            check()
+        img = step()
+        trips[0] += r.last_trips_run
+        seen.append((prog.accumulated_samples, prog.accum.clone(), img, prog.camera))
+        return img
+
+    prog.step = traced_step
+
+    def get(path):
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=HTTP_TIMEOUT) as resp:
+            return resp.status, resp.read()
+
+    def closed(label):
+        try:
+            get("/stats")
+        except OSError:
+            return
+        fail(f"viewer: the server still answers after {label}")
+
+    def read_snapshot(want, label):
+        with open(snapshot, "rb") as f:
+            if not np.array_equal(decode_png(f.read()), want):
+                fail(f"viewer: the snapshot {label} does not decode to the last image")
+
+    target = VIEW_PASSES * VIEW_SPP
     reset_launches()
-    for _ in range(VIEW_PASSES):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        img = prog.step()
-        pass_ms.append((time.perf_counter() - t0) * 1e3)
-        trips += r.last_trips_run
-        accums.append(prog.accum.clone())
-        prog.pass_history.append((prog.accumulated_samples, pass_ms[-1]))
-        prog.block_history.append(prog.block_assignment())
-        t0 = time.perf_counter()
-        prog._publish(img)
-        encode_ms.append((time.perf_counter() - t0) * 1e3)
+    img = prog.run(target_samples=target, snapshot_every=VIEW_SPP, out=snapshot,
+                   serve_port=port)
     passes_k1 = k1_launches(read_launches(), "viewer passes")
-    if passes_k1["closest_hit"] != trips:
-        fail(f"viewer: {passes_k1} K1 launches over passes that ran {trips} trips")
+    if passes_k1["closest_hit"] != trips[0]:
+        fail(f"viewer: {passes_k1} K1 launches over passes that ran {trips[0]} trips")
+    if ([s for s, _ in prog.pass_history] != [VIEW_SPP * (k + 1) for k in range(VIEW_PASSES)]
+            or len(prog.block_history) != VIEW_PASSES or len(seen) != VIEW_PASSES):
+        fail(f"viewer: run kept the passes {prog.pass_history}")
+    pass_ms = [ms for _, ms in prog.pass_history]
+    if img is not seen[-1][2]:
+        fail("viewer: run did not return its last pass's image")
+    if img.shape != (FRAME, FRAME, 3) or img.dtype != np.uint8 or not img.mean() > 1.0:
+        fail(f"viewer: unexpected image {img.shape} {img.dtype} mean {img.mean()}")
+    read_snapshot(img, "after the run")
+    closed("the run")
     want = torch.zeros_like(prog.accum)
-    for k, got in enumerate(accums):
+    for k, (_, got, _, _) in enumerate(seen):
         want = want + r.render_accum_offset(opt, sample_offset=k * VIEW_SPP)
         if not torch.equal(got, want):
             fail(f"viewer: the accumulator after pass {k + 1} is not the sum of its partials")
-    one = r.render_accum_offset(replace(opt, spp=VIEW_PASSES * VIEW_SPP))
+    one = r.render_accum_offset(replace(opt, spp=target))
     diff = (prog.accum - one).abs()
     if not bool((diff <= PROG_ATOL + PROG_RTOL * one.abs()).all()):
-        fail(f"viewer: {VIEW_PASSES} passes differ from one {VIEW_PASSES * VIEW_SPP}-spp "
+        fail(f"viewer: {VIEW_PASSES} passes differ from one {target}-spp "
              f"partial by up to {float(diff.max())}")
-    if img.shape != (FRAME, FRAME, 3) or img.dtype != np.uint8 or not img.mean() > 1.0:
-        fail(f"viewer: unexpected image {img.shape} {img.dtype} mean {img.mean()}")
 
-    server = _start_server(prog, 0)
-    port = server.server_address[1]
-    try:
-        def get(path):
-            with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
-                                        timeout=HTTP_TIMEOUT) as resp:
-                return resp.status, resp.read()
-
+    def serve_and_move():
+        """The second run's server, before its first pass: the first run's
+        last image and passes, then a camera change."""
         status, data = get("/frame.png")
         if status != 200 or not np.array_equal(decode_png(data), img):
             fail("viewer: /frame.png does not decode to the last image")
         stats = json.loads(get("/stats")[1])
         if (len(stats["passes"]) != VIEW_PASSES or stats["blocks"][0]["height"] != FRAME
-                or stats["accumulated_samples"] != VIEW_PASSES * VIEW_SPP):
+                or stats["accumulated_samples"] != target):
             fail(f"viewer: /stats is {stats}")
+        if b"/frame.png" not in get("/")[1]:
+            fail("viewer: / does not serve the viewer page")
         if get("/move?dir=forward&step=0.25")[0] != 204:
             fail("viewer: /move refused")
-        moved = prog._pending_camera
-        prog.step()
-        if prog.accumulated_samples != VIEW_SPP:
-            fail("viewer: the camera change did not reset the accumulation")
-        if not torch.equal(prog.accum, r.render_accum_offset(opt, moved)):
-            fail("viewer: the pass after /move is not a fresh render at the new camera")
-    finally:
-        server.shutdown()
-        server.server_close()
+        served["png_bytes"] = len(data)
+
+    served = {}
+    before_pass[VIEW_PASSES] = serve_and_move
+    moved_img = prog.run(target_samples=target + VIEW_SPP, snapshot_every=VIEW_SPP,
+                         out=snapshot, serve_port=port)
+    if before_pass or not served:
+        fail("viewer: the second run made no pass")
+    samples, accum, _, moved = seen[VIEW_PASSES]
+    if samples != VIEW_SPP or np.array_equal(moved.position, seen[0][3].position):
+        fail("viewer: the camera change did not reset the accumulation at a new camera")
+    if not torch.equal(accum, r.render_accum_offset(opt, moved)):
+        fail("viewer: the pass after /move is not a fresh render at the new camera")
+    if prog.accumulated_samples != target + VIEW_SPP:
+        fail(f"viewer: the second run ended at {prog.accumulated_samples} samples")
+    read_snapshot(moved_img, "after the camera change")
+    closed("the second run")
+    encode_ms = []
+    for _ in range(VIEW_PASSES):
+        t0 = time.perf_counter()
+        encode_png(img)
+        encode_ms.append((time.perf_counter() - t0) * 1e3)
 
     small = replace(opt, width=DEBUG_CHECK, height=DEBUG_CHECK)
     P = r.closest.packed
@@ -1838,9 +1888,11 @@ def phase_viewer(scenes, smi: str):
     emit(
         "viewer", card=smi, scene="sphere", frame=f"{FRAME}x{FRAME}x{VIEW_SPP}spp a pass",
         passes=VIEW_PASSES, pass_ms=pass_ms, png_encode_ms=encode_ms,
-        png_bytes=len(prog._latest_png), pass_launches=passes_k1, pass_trips=trips,
+        png_bytes=served["png_bytes"], pass_launches=passes_k1, pass_trips=trips[0],
         partials_equal=True, vs_one_partial_max_abs=float(diff.max()),
-        server_port=port, move_reset_equal=True, debug_check=f"{DEBUG_CHECK}x{DEBUG_CHECK}",
+        server_port=port, move_reset_equal=True,
+        moved_run_pass_ms=[ms for _, ms in prog.pass_history[VIEW_PASSES:]],
+        debug_check=f"{DEBUG_CHECK}x{DEBUG_CHECK}",
         debug=debug, pipeline_equal=True, pipeline_chain_ms=chain_ms[0],
         trace_names=named, trace_device_ms=device_us / 1e3,
     )
@@ -1865,8 +1917,9 @@ def phase_parallel(scenes, smi: str):
       ``DifferentiableRenderer``'s loss and gradient with the same step.
     * ``spawn_local_processes``: two ``gloo`` ranks on the card (NCCL puts
       no two ranks on one card), render 2x1 equal to the single renderer bit
-      for bit, and the train step 2x1 against the one-process 2x1 mesh's;
-      then one ``nccl`` rank.
+      for bit, and the train step 2x1 and 1x2 (the sample axis across the
+      processes: a differentiable all-reduce) against the one-process mesh's
+      of the same shape and the single device's; then one ``nccl`` rank.
     * Frame ms of the single renderer, the bands, the pool, the mesh and the
       processes; train step ms."""
     from dataclasses import replace
@@ -1980,34 +2033,36 @@ def phase_parallel(scenes, smi: str):
     scene_zip = os.path.join(SMOKE_DIR, "sphere.zip")
     sphere.save(scene_zip)
     spawned = {}
-    for label, kw in (
-        ("gloo 2x1 render", dict(num_processes=2, backend="gloo", devices=[str(card)] * 2,
-                                 opt_kwargs=frame, frames=3)),
-        ("gloo 2x1 train", dict(num_processes=2, backend="gloo", devices=[str(card)] * 2,
-                                opt_kwargs=dict(frame, width=TRAIN_FRAME, height=TRAIN_FRAME,
-                                                spp=TRAIN_SPP), job="train", frames=2)),
-        ("nccl 1x1 render", dict(num_processes=1, backend="nccl", devices=[str(card)],
-                                 opt_kwargs=frame, frames=3)),
+    train_frame = dict(frame, width=TRAIN_FRAME, height=TRAIN_FRAME, spp=TRAIN_SPP)
+    gloo2 = dict(backend="gloo", devices=[str(card)] * 2)
+    for label, tile, sample, kw in (
+        ("gloo 2x1 render", 2, 1, dict(gloo2, opt_kwargs=frame, frames=3)),
+        ("gloo 2x1 train", 2, 1, dict(gloo2, opt_kwargs=train_frame, job="train", frames=2)),
+        ("gloo 1x2 train", 1, 2, dict(gloo2, opt_kwargs=train_frame, job="train", frames=2)),
+        ("nccl 1x1 render", 1, 1, dict(backend="nccl", devices=[str(card)], opt_kwargs=frame,
+                                       frames=3)),
     ):
-        tile = kw["num_processes"]
         t0 = time.perf_counter()
         got = spawn_local_processes(
-            scene_zip, tile=tile, sample=1, out_path=os.path.join(SMOKE_DIR, label.replace(" ", "_")),
-            mode="auto", timeout=SPAWN_TIMEOUT, **kw,
+            scene_zip, num_processes=tile * sample, tile=tile, sample=sample,
+            out_path=os.path.join(SMOKE_DIR, label.replace(" ", "_")), mode="auto",
+            timeout=SPAWN_TIMEOUT, **kw,
         )
         wall_s = time.perf_counter() - t0
         row = {"frame_ms": float(min(got["ms"][1:])), "ms_all": got["ms"].tolist(),
                "wall_s": wall_s}
         if "train" in label:
-            # against the one-process 2x1 mesh's step, and so against the
-            # single device's
-            ref21 = DistributedRenderer(sphere, make_mesh(2, 1, [card] * 2))
-            ref21_loss = ref21.train_step(small, target, lr=MESH_LR)
-            row.update(loss=float(got["loss"]), one_process_loss=ref21_loss,
+            # against the one-process mesh's step of the same shape, and so
+            # against the single device's
+            ref_mesh = DistributedRenderer(sphere, make_mesh(tile, sample, [card] * 2))
+            ref_mesh_loss = ref_mesh.train_step(small, target, lr=MESH_LR)
+            row.update(loss=float(got["loss"]), one_process_loss=ref_mesh_loss,
                        one_process_worst_share_of_tol=against_ref(
-                           ref21_loss, ref21.params, "parallel: 2x1 mesh train step"),
+                           ref_mesh_loss, ref_mesh.params,
+                           f"parallel: {tile}x{sample} mesh train step"),
                        worst_share_of_tol=against_ref(
-                           float(got["loss"]), dict(ref21.params, mat_reflectance=got["refl"]),
+                           float(got["loss"]),
+                           dict(ref_mesh.params, mat_reflectance=got["refl"]),
                            f"parallel: {label}"))
         elif not np.array_equal(got["accum"], want.cpu().numpy()):
             fail(f"parallel: {label} differs from the single renderer")

@@ -169,10 +169,11 @@ class DistributedRenderer:
                     for si, d in enumerate(row):
                         r = self.renderers[d]
                         band = render_band_eager(
-                            r, dict(r.S, **{k: v.to(d) for k, v in leaves.items()}), local,
-                            y0=ti * rows, band_h=rows, frustum=frustum.to(d), eye=eye.to(d),
-                            sample_offset=si * spp_local,
-                        ).to(row[0])
+                            r, local, frustum=frustum.to(d), eye=eye.to(d), y0=ti * rows,
+                            band_h=rows, sample_offset=si * spp_local,
+                            S=dict(r.S, **{k: v.to(d) for k, v in leaves.items()}),
+                        )
+                        band = r.finalize(band, replace(local, height=rows)).to(row[0])
                         acc = band if acc is None else acc + band
                     img = tonemap_reinhard(acc + 1e-6, 1.0 / opt.spp, opt.exposure)
                     want = target[ti * rows:(ti + 1) * rows].to(row[0])

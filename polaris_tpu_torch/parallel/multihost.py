@@ -138,10 +138,12 @@ def train_step_multihost(renderer, opt, mesh: GlobalMesh, target, lr: float = 0.
     want = torch.as_tensor(np.asarray(target, np.float32)[y0:y0 + rows]).to(dev)
     params = {k: renderer.S[k].detach().clone().requires_grad_(True) for k in PARAM_FIELDS}
     with torch.enable_grad():
+        local = replace(opt, spp=spp_local)
         band = render_band_eager(
-            renderer, dict(renderer.S, **params), replace(opt, spp=spp_local), y0=y0,
-            band_h=rows, frustum=frustum, eye=eye, sample_offset=mesh.sample_index * spp_local,
+            renderer, local, frustum=frustum, eye=eye, y0=y0, band_h=rows,
+            sample_offset=mesh.sample_index * spp_local, S=dict(renderer.S, **params),
         )
+        band = renderer.finalize(band, replace(local, height=rows))
         acc = all_reduce(band, group=mesh.sample_group)
         img = tonemap_reinhard(acc + 1e-6, 1.0 / opt.spp, opt.exposure)
         loss = torch.sum((img - want) ** 2) / (opt.width * opt.height * 3) / samples
@@ -224,8 +226,9 @@ def spawn_local_processes(
 ):
     """Run a real multi-process job on this machine: ``num_processes``
     ranks of ``backend`` meeting at ``port`` (a free one by default), rank
-    i on ``devices[i]`` (every one on the CPU by default). ``job`` is
-    ``"render"`` (rank 0 writes the frame's accumulator, ``accum``) or
+    i on ``devices[i]``: by default on CUDA device i, and without a card
+    the call raises; the CPU only on request (``devices=["cpu"] * n``).
+    ``job`` is ``"render"`` (rank 0 writes the frame's accumulator, ``accum``) or
     ``"train"`` (one distributed train step against a zero target, lr 0.1:
     ``loss`` and the updated ``refl`` = ``mat_reflectance``), each run
     ``frames`` times, with every run's milliseconds as ``ms``. Returns the
@@ -233,7 +236,14 @@ def spawn_local_processes(
     or ``timeout`` seconds pass."""
     if job not in ("render", "train"):
         raise ValueError(f"job must be 'render' or 'train', not {job!r}")
-    devices = list(devices) if devices is not None else ["cpu"] * num_processes
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device available; pass devices=['cpu', ...] explicitly "
+                "to run the processes on the CPU"
+            )
+        devices = [f"cuda:{i}" for i in range(num_processes)]
+    devices = list(devices)
     if len(devices) != num_processes:
         raise ValueError(f"{len(devices)} devices for {num_processes} processes")
     if not out_path.endswith(".npz"):

@@ -17,7 +17,8 @@ frame, and have no backward of their own, as the JAX package's Pallas
 kernels have no VJP.
 
 The loss is the JAX ``_build_loss``: samples ``0 .. spp-1`` of
-``render_sample_block`` summed from zeros in sample order, the frame brought
+``render_sample_block`` summed from zeros in sample order
+(``integrator.render_band_eager`` over the whole frame), the frame brought
 to pixel order, ``tonemap_reinhard(accum + 1e-6, 1/spp, exposure)``, and the
 mean squared error against a target image. ``loss_and_grad_eager`` runs it
 op by op: the reference. ``DifferentiableRenderer`` runs the same function as
@@ -37,7 +38,7 @@ import torch
 from ..asset.camera import Camera
 from ..asset.scene_data import PARAM_FIELDS
 from ..utils.log import get_logger
-from .integrator import TorchRenderer, render_sample_block
+from .integrator import TorchRenderer, render_band_eager
 from .options import RenderOptions
 from .shade import tonemap_reinhard
 
@@ -51,21 +52,12 @@ def render_loss(r: TorchRenderer, opt: RenderOptions, *, seed, target, frustum, 
     order; one gather restores pixel order before the tonemap. ``seed`` is a
     Python int or a 0-d tensor; ``closest`` / ``any_hit`` default to the
     renderer's."""
-    W, H = opt.width, opt.height
-    xs, ys, pix, inv = r._pixel_order(W, H)
-    accum = torch.zeros((W * H, 3), dtype=torch.float32, device=r.device)
-    for s in range(opt.spp):
-        accum = accum + render_sample_block(
-            r.S, closest or r.closest, any_hit or r.any_hit,
-            frustum=frustum, eye=eye, width=W, height=H, pixel_x=xs, pixel_y=ys,
-            pixel_idx=pix, sample_idx=s, seed=seed, num_bounces=opt.num_bounces,
-            min_bounces_for_rr=opt.min_bounces_for_rr, num_emissives=r.num_emissives,
-            scene_diffuse_mat=r.scene_diffuse_mat, material_depth=r.material_depth,
-            rr_tile_coherent=opt.rr_tile_coherent,
-        )
-    if inv is not None:
-        accum = torch.index_select(accum, 0, inv)
-    img = tonemap_reinhard(accum.reshape(H, W, 3) + 1e-6, 1.0 / opt.spp, opt.exposure)
+    closest = closest or r.closest
+    accum = render_band_eager(
+        r, opt, frustum=frustum, eye=eye, seed=seed, closest=closest, any_hit=any_hit,
+        closest_bounce=closest,  # the JAX loss peels no bounce onto another kernel
+    )
+    img = tonemap_reinhard(r.finalize(accum, opt) + 1e-6, 1.0 / opt.spp, opt.exposure)
     return torch.mean((img - target) ** 2)
 
 

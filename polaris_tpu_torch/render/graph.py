@@ -87,7 +87,10 @@ class Step:
             before = [dict(t) for t in tables]
             t0 = time.perf_counter()
             capture = torch.cuda.graph(graph, pool=self.pool, stream=self.stream)
-            # read by the context manager when it begins the capture
+            # read by the context manager when it begins the capture; set
+            # here, not as the constructor's keyword, so that a stand-in for
+            # torch.cuda.graph taking (graph, pool, stream) still serves
+            # (tests/test_torch_compiled.py's)
             capture.capture_error_mode = "thread_local"
             try:
                 with capture:

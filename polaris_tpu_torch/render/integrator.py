@@ -11,15 +11,16 @@ makes the image independent of lane order and of how the samples are
 chunked into launches.
 
 The loops exist twice over the same bodies. The eager functions
-(``render_sample_block``, ``render_block_regen`` over ``regen_start`` /
-``regen_trip``, ``render_blocked_eager``) launch every op on its own; the
-CPU, autograd and the reference checks run them. ``TorchRenderer`` runs one
-step of a loop as a function of static device tensors, replayed from a CUDA
-graph on a card (``render/graph.py``): the counterpart of the JAX package's
-compiled programs (``_get_render_fn``, ``_get_chunk_carry_fn``,
-``_get_finalize_fn``, ``_get_adaptive_fn``), and bit-equal to the eager
-loops. The forward path runs under ``torch.no_grad()``; traversal inputs are
-detached (hit geometry is non-differentiable by design).
+(``render_sample_block``, ``render_band_eager``, ``render_block_regen``
+over ``regen_start`` / ``regen_trip``, ``render_blocked_eager``) launch
+every op on its own; the CPU, autograd and the reference checks run them.
+``TorchRenderer`` runs one step of a loop as a function of static device
+tensors, replayed from a CUDA graph on a card (``render/graph.py``): the
+counterpart of the JAX package's compiled programs (``_get_render_fn``,
+``_get_chunk_carry_fn``, ``_get_finalize_fn``, ``_get_adaptive_fn``), and
+bit-equal to the eager loops. The forward path runs under
+``torch.no_grad()``; traversal inputs are detached (hit geometry is
+non-differentiable by design).
 """
 
 from __future__ import annotations
@@ -210,30 +211,40 @@ def band_pixels(xs, ys, row0, width: int):
     return xs, ys, ys.to(torch.int64) * width + xs.to(torch.int64)
 
 
-def render_band_eager(r, S: Dict, opt: RenderOptions, *, y0, band_h: int, frustum, eye,
-                      sample_offset: int = 0) -> torch.Tensor:
-    """Rows ``[y0, y0 + band_h)``: ``opt.spp`` samples from ``sample_offset``
-    of ``render_sample_block`` over the band's lanes, summed from zeros in
-    sample order and brought to pixel order, [band_h, W, 3]. The band
-    program's loop run op by op with the scene tensors ``S`` (parameter
-    tensors that carry a gradient, say): the forward of the distributed
-    train step (``parallel/mesh.py``)."""
+def render_band_eager(r, opt: RenderOptions, *, frustum, eye, seed=None, y0=0,
+                      band_h: Optional[int] = None, sample_offset=0, S: Optional[Dict] = None,
+                      closest=None, any_hit=None, closest_bounce=None) -> torch.Tensor:
+    """The sequential sample loop op by op: ``opt.spp`` samples from
+    ``sample_offset`` of ``render_sample_block`` over the lanes of rows
+    ``[y0, y0 + band_h)`` (the whole frame by default), summed from zeros in
+    sample order; [band_h * W, 3] in the band's blocked lane order
+    (``r.finalize`` with the band's height brings it to pixel order).
+
+    The reference of ``r``'s sequential program, and the forward of the loss
+    (``render/grad.py``) and of the distributed train step
+    (``parallel/mesh.py``), which pass scene tensors ``S`` that carry a
+    gradient. ``seed`` (a Python int or a 0-d tensor) defaults to
+    ``opt.seed``; ``closest`` / ``any_hit`` / ``closest_bounce`` to the
+    renderer's."""
     W = opt.width
-    xs, ys, _, inv = r._pixel_order(W, band_h)
+    band_h = band_h or opt.height
+    xs, ys, _, _ = r._pixel_order(W, band_h)
     px, py, pix = band_pixels(xs, ys, y0, W)
+    common = dict(
+        frustum=frustum, eye=eye, width=W, height=opt.height, pixel_x=px, pixel_y=py,
+        pixel_idx=pix, seed=int(opt.seed) & 0xFFFFFFFF if seed is None else seed,
+        num_bounces=opt.num_bounces, min_bounces_for_rr=opt.min_bounces_for_rr,
+        num_emissives=r.num_emissives, scene_diffuse_mat=r.scene_diffuse_mat,
+        material_depth=r.material_depth, rr_tile_coherent=opt.rr_tile_coherent,
+        closest_bounce=closest_bounce or r.closest_bounce,
+    )
     accum = torch.zeros((W * band_h, 3), dtype=torch.float32, device=r.device)
     for s in range(opt.spp):
         accum = accum + render_sample_block(
-            S, r.closest, r.any_hit, frustum=frustum, eye=eye, width=W, height=opt.height,
-            pixel_x=px, pixel_y=py, pixel_idx=pix, sample_idx=sample_offset + s,
-            seed=int(opt.seed) & 0xFFFFFFFF, num_bounces=opt.num_bounces,
-            min_bounces_for_rr=opt.min_bounces_for_rr, num_emissives=r.num_emissives,
-            scene_diffuse_mat=r.scene_diffuse_mat, material_depth=r.material_depth,
-            rr_tile_coherent=opt.rr_tile_coherent, closest_bounce=r.closest_bounce,
+            r.S if S is None else S, closest or r.closest, any_hit or r.any_hit,
+            sample_idx=sample_offset + s, **common,
         )
-    if inv is not None:
-        accum = torch.index_select(accum, 0, inv)
-    return accum.reshape(band_h, W, 3)
+    return accum
 
 
 # the fields of the regeneration loop's carry (the JAX carry less its trip
@@ -462,38 +473,19 @@ class _RegenProgram(_Program):
         self.trip = self.step(trip)
 
 
-class _SampleProgram(_Program):
-    """The sequential sample loop: one step is one sample of every lane
-    (``render_sample_block``, ``num_bounces`` passes), added to a partial
-    summed from zero, and the sample index moved on, on the device."""
-
-    def __init__(self, r, opt, chunk: int):
-        super().__init__(r, opt)
-        self.part = torch.zeros((self.n, 3), dtype=torch.float32, device=r.device)
-
-        def sample():
-            self.part.add_(
-                render_sample_block(
-                    r.S, r.closest, r.any_hit, sample_idx=self.offset,
-                    closest_bounce=r.closest_bounce, **self.common,
-                )
-            )
-            self.offset.add_(1)
-
-        self.sample = self.step(sample)
-
-
 class _BandProgram(_Program):
-    """The sequential sample loop over a row band of ``band_h`` rows, the JAX
-    package's ``_get_band_fn``: one step is one sample of every lane of the
-    band, added to a partial summed from zero. The lanes walk the band in
-    its own blocked order; the band's top row ``row0`` is a device input like
-    the seed, the camera and the sample offset, so one program serves every
-    band of its height."""
+    """The sequential sample loop over a row band of ``band_h`` rows, the
+    whole frame by default (the JAX package's ``_get_band_fn``, and its frame
+    loop): one step is one sample of every lane of the band
+    (``render_sample_block``, ``num_bounces`` passes), added to a partial
+    summed from zero, and the sample index moved on, on the device. The
+    lanes walk the band in its own blocked order; the band's top row
+    ``row0`` is a device input like the seed, the camera and the sample
+    offset, so one program serves every band of its height."""
 
-    def __init__(self, r, opt, band_h: int):
+    def __init__(self, r, opt, chunk: int, band_h: Optional[int] = None):
         # the lanes of a band_h-row frame; raygen keeps the full frame's height
-        super().__init__(r, replace(opt, height=band_h))
+        super().__init__(r, replace(opt, height=band_h or opt.height))
         self.row0 = torch.zeros((), dtype=torch.int64, device=r.device)
         self.part = torch.zeros((self.n, 3), dtype=torch.float32, device=r.device)
         xs, ys = self.frame["pixel_x"], self.frame["pixel_y"]
@@ -563,7 +555,7 @@ class _AdaptiveProgram(_Program):
         self.run_chunk = self.step(run_chunk)
 
 
-_LOOPS = {"regen": _RegenProgram, "sequential": _SampleProgram, "adaptive": _AdaptiveProgram}
+_LOOPS = {"regen": _RegenProgram, "sequential": _BandProgram, "adaptive": _AdaptiveProgram}
 
 
 class TorchRenderer:
@@ -687,10 +679,14 @@ class TorchRenderer:
         pool."""
         return Step(fn, self.device, self._stream, self._pool)
 
-    def _program(self, opt: RenderOptions, chunk: int, loop: str) -> _Program:
+    def _program(self, opt: RenderOptions, chunk: int, loop: str, band_h: int = 0) -> _Program:
+        """``loop``'s program for frames of ``opt``'s shape, ``chunk``
+        samples a launch; ``band_h``: the rows of the sequential loop's band,
+        the whole frame when 0."""
         key = (opt.width, opt.height, chunk, opt.num_bounces, opt.min_bounces_for_rr,
-               opt.rr_tile_coherent, loop)
-        return self.program(key, lambda: _LOOPS[loop](self, opt, chunk))
+               opt.rr_tile_coherent, loop, band_h or opt.height)
+        band = (band_h,) if band_h else ()
+        return self.program(key, lambda: _LOOPS[loop](self, opt, chunk, *band))
 
     @property
     def capture_seconds(self) -> float:
@@ -707,12 +703,15 @@ class TorchRenderer:
         eye = torch.from_numpy(np.asarray(cam.position, np.float32)).to(self.device)
         return frustum, eye
 
-    def _block_partial(self, opt: RenderOptions, frustum, eye, sample_offset: int):
+    def _block_partial(self, opt: RenderOptions, frustum, eye, sample_offset: int,
+                       band=None):
         """Sum of ``opt.spp`` samples' radiance in BLOCKED lane order, summed
         from zero, through the regeneration loop or the sequential sample
-        loop. Returns a static buffer of the loop's program: the next launch
-        of that shape overwrites it."""
-        if self.regen:
+        loop; ``band`` = ``(y0, band_h)``: those rows' lanes, through the
+        sequential loop whichever loop this renderer runs. Returns a static
+        buffer of the loop's program: the next launch of that shape
+        overwrites it."""
+        if self.regen and band is None:
             prog = self._program(opt, opt.spp, "regen")
             prog.set(opt.seed, frustum, eye, sample_offset)
             prog.s_end.fill_(int(sample_offset) + opt.spp)
@@ -730,8 +729,10 @@ class TorchRenderer:
                     break
             self._trips.add_(prog.trips)
             return prog.carry["radiance"]
-        prog = self._program(opt, opt.spp, "sequential")
+        y0, band_h = band or (0, 0)
+        prog = self._program(opt, opt.spp, "sequential", band_h)
         prog.set(opt.seed, frustum, eye, sample_offset)
+        prog.row0.fill_(y0)
         prog.part.zero_()
         for _ in range(opt.spp):
             prog.sample()
@@ -739,24 +740,26 @@ class TorchRenderer:
         self.last_trips_run += opt.spp * opt.num_bounces
         return prog.part
 
-    def _render_blocked(self, opt: RenderOptions, camera, sample_offset: int, chunked: bool):
-        """One frame's accumulator in blocked lane order: ``opt.spp`` samples
-        from ``sample_offset`` as one partial, or, when ``chunked`` and
-        ``opt.spp > spp_per_launch``, in ``spp_per_launch`` chunks whose
+    def _render_blocked(self, opt: RenderOptions, frustum, eye, sample_offset: int,
+                        chunked: bool, band=None):
+        """One frame's accumulator in blocked lane order, or a band's
+        (``band`` = ``(y0, band_h)``, ``_block_partial``): ``opt.spp``
+        samples from ``sample_offset`` as one partial, or, when ``chunked``
+        and ``opt.spp > spp_per_launch``, in ``spp_per_launch`` chunks whose
         partials are added to a device accumulator — (chunk0)+(chunk1)+...,
         the association of the JAX package's chunk carry."""
-        frustum, eye = self._camera_tensors(opt, camera)
         self._trips = torch.zeros((), dtype=torch.int64, device=self.device)
         self.last_trips = self.last_trips_run = self.last_host_syncs = 0
         if not chunked or opt.spp <= self.spp_per_launch:
-            return self._block_partial(opt, frustum, eye, sample_offset)
-        accum = torch.zeros((opt.width * opt.height, 3), dtype=torch.float32, device=self.device)
+            return self._block_partial(opt, frustum, eye, sample_offset, band)
+        rows = band[1] if band else opt.height
+        accum = torch.zeros((opt.width * rows, 3), dtype=torch.float32, device=self.device)
         done = 0
         while done < opt.spp:
             chunk = min(self.spp_per_launch, opt.spp - done)
-            accum.add_(
-                self._block_partial(replace(opt, spp=chunk), frustum, eye, sample_offset + done)
-            )
+            accum.add_(self._block_partial(
+                replace(opt, spp=chunk), frustum, eye, sample_offset + done, band
+            ))
             done += chunk
         return accum
 
@@ -773,7 +776,8 @@ class TorchRenderer:
         the exposure (one float32 product) and quantize. Returns a new
         [H, W, 3] tensor on the device."""
         inv = self._pixel_order(opt.width, opt.height)[3]
-        a = (accum[inv] if inv is not None else accum.clone()).reshape(opt.height, opt.width, 3)
+        a = (torch.index_select(accum, 0, inv) if inv is not None else accum.clone())
+        a = a.reshape(opt.height, opt.width, 3)
         if emit == "f32":
             return a
         return self.tonemap_u8(a, 1.0 / opt.spp, opt.exposure)
@@ -801,7 +805,10 @@ class TorchRenderer:
         partial (progressive accumulation); returns the f32 accumulator
         [H, W, 3] on the renderer's device."""
         with Timer() as t:
-            out = self.finalize(self._render_blocked(opt, camera, sample_offset, False), opt)
+            out = self.finalize(
+                self._render_blocked(opt, *self._camera_tensors(opt, camera), sample_offset, False),
+                opt,
+            )
             self._end_frame()
         self.last_render_ms = t.ms
         return out
@@ -814,7 +821,9 @@ class TorchRenderer:
         ``spp_per_launch`` when there are more; returns the f32 accumulator
         [H, W, 3] on the renderer's device."""
         with Timer() as t:
-            out = self.finalize(self._render_blocked(opt, camera, 0, True), opt)
+            out = self.finalize(
+                self._render_blocked(opt, *self._camera_tensors(opt, camera), 0, True), opt
+            )
             self._end_frame()
         self.last_render_ms = t.ms
         return out
@@ -832,7 +841,8 @@ class TorchRenderer:
         on the host. The timed span covers render, tonemap, quantize and the
         fetch of the u8 image."""
         with Timer() as t:
-            img = self.finalize(self._render_blocked(opt, camera, 0, True), opt, "u8")
+            accum = self._render_blocked(opt, *self._camera_tensors(opt, camera), 0, True)
+            img = self.finalize(accum, opt, "u8")
             out = img.cpu().numpy()
             self._end_frame()
         self.last_render_ms = t.ms
@@ -872,30 +882,8 @@ class TorchRenderer:
         device work is not waited for."""
         if not (0 <= y0 and band_h > 0 and y0 + band_h <= opt.height):
             raise ValueError(f"rows [{y0}, {y0 + band_h}) are not inside a frame of {opt.height}")
-        W = opt.width
-        accum = None
-        done = 0
-        while done < opt.spp:
-            chunk = min(self.spp_per_launch, opt.spp - done)
-            key = ("band", W, opt.height, band_h, chunk, opt.num_bounces,
-                   opt.min_bounces_for_rr, opt.rr_tile_coherent)
-            prog = self.program(key, lambda: _BandProgram(self, replace(opt, spp=chunk), band_h))
-            prog.set(opt.seed, frustum, eye, sample_offset + done)
-            prog.row0.fill_(int(y0))
-            prog.part.zero_()
-            for _ in range(chunk):
-                prog.sample()
-            if chunk == opt.spp:
-                accum = prog.part
-            else:
-                if accum is None:
-                    accum = torch.zeros_like(prog.part)
-                accum.add_(prog.part)
-            done += chunk
-        self.last_trips = self.last_trips_run = opt.spp * opt.num_bounces
-        self.last_host_syncs = 0
-        inv = self._pixel_order(W, band_h)[3]
-        return (accum[inv] if inv is not None else accum.clone()).reshape(band_h, W, 3)
+        accum = self._render_blocked(opt, frustum, eye, sample_offset, True, (y0, band_h))
+        return self.finalize(accum, replace(opt, height=band_h))
 
     # ----- adaptive per-block sampling -----
     #
@@ -986,34 +974,26 @@ def render_blocked_eager(r: TorchRenderer, opt: RenderOptions, camera: Optional[
     bit, and the eager baseline of its time. ``closest`` / ``any_hit``
     replace the renderer's traversal (its plain version, say). Returns
     (accumulator in blocked lane order, trips); ``r.finalize`` closes it."""
-    closest, any_hit = closest or r.closest, any_hit or r.any_hit
     frustum, eye = r._camera_tensors(opt, camera)
-    xs, ys, pix, _ = r._pixel_order(opt.width, opt.height)
-    common = dict(
-        frustum=frustum, eye=eye, width=opt.width, height=opt.height, pixel_x=xs,
-        pixel_y=ys, pixel_idx=pix, seed=int(opt.seed), num_bounces=opt.num_bounces,
-        min_bounces_for_rr=opt.min_bounces_for_rr, num_emissives=r.num_emissives,
-        scene_diffuse_mat=r.scene_diffuse_mat, material_depth=r.material_depth,
-        rr_tile_coherent=opt.rr_tile_coherent,
-    )
-    n = opt.width * opt.height
+    common = dict(frustum=frustum, eye=eye, closest=closest, any_hit=any_hit)
 
     def partial(offset: int, spp: int):
         if r.regen:
+            xs, ys, pix, _ = r._pixel_order(opt.width, opt.height)
             return render_block_regen(
-                r.S, closest, any_hit, sample_offset=offset, spp=spp, **common
+                r.S, closest or r.closest, any_hit or r.any_hit, frustum=frustum, eye=eye,
+                width=opt.width, height=opt.height, pixel_x=xs, pixel_y=ys, pixel_idx=pix,
+                sample_offset=offset, spp=spp, seed=int(opt.seed),
+                num_bounces=opt.num_bounces, min_bounces_for_rr=opt.min_bounces_for_rr,
+                num_emissives=r.num_emissives, scene_diffuse_mat=r.scene_diffuse_mat,
+                material_depth=r.material_depth, rr_tile_coherent=opt.rr_tile_coherent,
             )
-        part = torch.zeros((n, 3), dtype=torch.float32, device=r.device)
-        for s in range(spp):
-            part = part + render_sample_block(
-                r.S, closest, any_hit, sample_idx=offset + s,
-                closest_bounce=r.closest_bounce, **common,
-            )
+        part = render_band_eager(r, replace(opt, spp=spp), sample_offset=offset, **common)
         return part, spp * opt.num_bounces
 
     if opt.spp <= r.spp_per_launch:
         return partial(0, opt.spp)
-    accum = torch.zeros((n, 3), dtype=torch.float32, device=r.device)
+    accum = torch.zeros((opt.width * opt.height, 3), dtype=torch.float32, device=r.device)
     trips = done = 0
     while done < opt.spp:
         chunk = min(r.spp_per_launch, opt.spp - done)

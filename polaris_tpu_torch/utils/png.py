@@ -10,6 +10,7 @@ import zlib
 import numpy as np
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
+LEVEL = 6  # zlib's compression level
 
 
 def _chunk(tag: bytes, data: bytes) -> bytes:
@@ -17,7 +18,7 @@ def _chunk(tag: bytes, data: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
 
 
-def encode_png(img: np.ndarray, level: int = 6) -> bytes:
+def encode_png(img: np.ndarray) -> bytes:
     """The PNG file of a [H, W, 3] uint8 image."""
     img = np.asarray(img)
     if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
@@ -27,7 +28,7 @@ def encode_png(img: np.ndarray, level: int = 6) -> bytes:
     rows[:, 1:] = img.reshape(h, 3 * w)
     header = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)  # 8 bits, RGB, deflate, filter 0, no interlace
     return (SIGNATURE + _chunk(b"IHDR", header)
-            + _chunk(b"IDAT", zlib.compress(rows.tobytes(), level)) + _chunk(b"IEND", b""))
+            + _chunk(b"IDAT", zlib.compress(rows.tobytes(), LEVEL)) + _chunk(b"IEND", b""))
 
 
 def write_png(path: str, img: np.ndarray) -> None:

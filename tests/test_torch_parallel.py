@@ -15,8 +15,10 @@ multi-process rendering over ``torch.distributed`` (``gloo``).
   ``tests/test_scheduler_cli.py`` (the five scheduler tests),
   ``tests/test_workers.py`` (all eight), ``tests/test_sharding.py`` (tile,
   sample and 2D against a single device) and ``tests/test_multihost.py``
-  (the two-process render, tile 2x1, and the two-process train step), at
-  their tolerances, or exactly where the port's result is exact.
+  (the two-process render, tile 2x1, and the two-process train step, 2x1
+  and 1x2), at their tolerances, or exactly where the port's result is
+  exact; ``spawn_local_processes`` needs a card unless ``devices`` names
+  the CPU.
 * ``ValueError`` when rows or spp do not divide the mesh.
 * The verbatim copies (``render/stats.py``, ``render/scheduler.py``) are the
   originals byte for byte, and the worker snippet of
@@ -142,10 +144,10 @@ def test_band_program_is_the_eager_band(cornell):
     frustum, eye = r._camera_tensors(opt, None)
     for y0 in (0, 16):
         got = r.render_band_accum(opt, y0, 16, sample_offset=3)
-        want = render_band_eager(r, r.S, opt, y0=y0, band_h=16, frustum=frustum, eye=eye,
+        want = render_band_eager(r, opt, frustum=frustum, eye=eye, y0=y0, band_h=16,
                                  sample_offset=3)
-        assert torch.equal(got, want)
-    assert sum(k[0] == "band" for k in r._programs) == 1
+        assert torch.equal(got, r.finalize(want, RenderOptions(**dict(FRAME, height=16))))
+    assert list(r._programs) == [(16, 32, 2, 2, 3, False, "sequential", 16)]
 
 
 def test_band_outside_the_frame_raises(cornell):
@@ -428,7 +430,7 @@ def test_two_process_render_matches(cornell, scene_zip, tmp_path):
     single = TorchRenderer(cornell, device="cpu", mode="bvh").render_accum(RenderOptions(**MULTI))
     got = spawn_local_processes(
         scene_zip, MULTI, num_processes=2, tile=2, sample=1, out_path=str(tmp_path / "accum"),
-        backend="gloo", mode="bvh", timeout=SUBPROCESS_TIMEOUT,
+        backend="gloo", devices=["cpu"] * 2, mode="bvh", timeout=SUBPROCESS_TIMEOUT,
     )
     assert got["accum"].shape == (16, 16, 3) and got["ms"].shape == (1,)
     np.testing.assert_array_equal(got["accum"], single.numpy())
@@ -444,12 +446,50 @@ def test_two_process_train_step(cornell, scene_zip, tmp_path):
     ref_loss = ref.train_step(opt, np.zeros((16, 16, 3), np.float32), lr=0.1)
     got = spawn_local_processes(
         scene_zip, MULTI, num_processes=2, tile=2, sample=1, out_path=str(tmp_path / "train"),
-        backend="gloo", mode="bvh", job="train", timeout=SUBPROCESS_TIMEOUT,
+        backend="gloo", devices=["cpu"] * 2, mode="bvh", job="train",
+        timeout=SUBPROCESS_TIMEOUT,
     )
     np.testing.assert_allclose(float(got["loss"]), ref_loss, rtol=1e-5)
     np.testing.assert_allclose(got["refl"], ref.params["mat_reflectance"].numpy(),
                                rtol=1e-4, atol=1e-7)
     assert not np.array_equal(got["refl"], cornell["mat_reflectance"])
+
+
+def test_two_process_train_step_over_samples(cornell, scene_zip, tmp_path):
+    """The train step with the sample axis across 2 processes (1x2): the
+    tile's accumulator is a differentiable all-reduce and each rank
+    backpropagates half of the tile's loss. The loss and the updated
+    parameters against the one-process (1, 2) mesh's step and against
+    ``DifferentiableRenderer``'s loss and gradient with the same SGD step,
+    so a step ``sample`` times too long or too short fails."""
+    from polaris_tpu_torch.parallel.multihost import spawn_local_processes
+    from polaris_tpu_torch.render.grad import DifferentiableRenderer
+
+    opt = RenderOptions(**MULTI)
+    target = np.zeros((16, 16, 3), np.float32)
+    ref = _mesh(cornell, 1, 2)
+    ref_loss = ref.train_step(opt, target, lr=0.1)
+    one = DifferentiableRenderer(cornell, device="cpu", mode="bvh")
+    one_loss, grads, _ = one.loss_and_grad(opt, target)
+    one_refl = (torch.as_tensor(cornell["mat_reflectance"])
+                - 0.1 * grads["mat_reflectance"]).detach().numpy()
+    got = spawn_local_processes(
+        scene_zip, MULTI, num_processes=2, tile=1, sample=2, out_path=str(tmp_path / "train"),
+        backend="gloo", devices=["cpu"] * 2, mode="bvh", job="train",
+        timeout=SUBPROCESS_TIMEOUT,
+    )
+    for loss, refl in ((ref_loss, ref.params["mat_reflectance"].numpy()), (one_loss, one_refl)):
+        np.testing.assert_allclose(float(got["loss"]), loss, rtol=1e-5)
+        np.testing.assert_allclose(got["refl"], refl, rtol=1e-4, atol=1e-7)
+    assert not np.array_equal(got["refl"], cornell["mat_reflectance"])
+
+
+def test_spawn_needs_a_card_unless_devices_are_named(scene_zip, tmp_path, monkeypatch):
+    from polaris_tpu_torch.parallel.multihost import spawn_local_processes
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match=r"no CUDA device.*devices=\['cpu'"):
+        spawn_local_processes(scene_zip, MULTI, 2, 2, 1, str(tmp_path / "x"), backend="gloo")
 
 
 def test_worker_snippet_imports_nothing_of_jax():
