@@ -128,6 +128,33 @@ printing one JSON line:
             step; ``spawn_local_processes``: two ``gloo`` ranks on the card
             (render 2x1 bit for bit, the train step 2x1 and 1x2 against the
             one-process mesh's), one ``nccl`` rank; frame ms of each
+  modes     the integrator's opt-in modes on sphere and cornell 512x512, 16
+            spp, 5 bounces, RR after 3, mode 'auto' (K1):
+            ``TorchRenderer(compact=True)``, ``(sort_rays=True)`` and
+            ``(batch_samples=True)``, each f32 accumulator and u8 image bit
+            for bit the default sequential loop's; frame ms (best of 3 after
+            the capture, the four renderers of a scene in turns), K1's
+            launches a frame and peak memory (the first
+            frame, which captures) of each beside the default's; K1 alone
+            on the frame's primary, bounce-1 and shadow rays in lane order,
+            grouped by octant as ``sort_rays`` groups them and with the
+            live rays first as ``compact`` packs them (ms a launch, graph
+            replays). Then the traversal modes: 'brute' on
+            cornell's 256x256 primary and shadow rays replayed from a CUDA
+            graph against K5's hits, and 'packet' on cornell's primary rays
+            against K1's: the same mask, triangle and instance, t within
+            T_RTOL / T_ATOL
+  cli       the command line: the flagship frame (sphere 512x512, 16 spp,
+            5 bounces, RR after 3, --regen) through ``python -m
+            polaris_tpu_torch.cli render frame`` in a subprocess, its PNG
+            equal bit for bit to ``TorchRenderer(regen=True).render``
+            quantized as the CLI quantizes, with the stats table's total ms
+            and the subprocess's wall seconds; then in this process through
+            ``cli.main``: ``render progressive`` (two passes, a snapshot),
+            ``scene compile`` / ``scene info``, ``devices`` (the card named),
+            and cornell 256x256, 4 spp frames with ``--mode pallas8_nodes``
+            and ``--mode brute``, each equal to ``TorchRenderer`` of the same
+            mode bit for bit
 
 The last three lines of the output are: the card's name and power limit as
 nvidia-smi prints them, one JSON object ``{"kernels": [...]}`` with the twelve
@@ -205,6 +232,9 @@ POOL_FRAMES, POOL_QUANTUM = 4, 32
 MESH_RTOL = 1e-5  # a split of the samples: like tests/test_sharding.py
 # the distributed train step: 128x128, 4 spp, zero target, SGD at MESH_LR
 TRAIN_FRAME, TRAIN_SPP, MESH_LR = 128, 4, 0.1
+# the integrator's opt-in modes (phase modes), at the flagship's full width
+MODES_SPP = 16
+OPT_MODES = ("compact", "sort_rays", "batch_samples")
 HTTP_TIMEOUT, SPAWN_TIMEOUT = 30, 300
 SMOKE_DIR = os.path.join(HERE, "build", "smoke")  # files the phases write
 # the scenes of the mode-by-scene grid; the two mid-size terrains (grids 100
@@ -349,10 +379,12 @@ def time_ms(fn, reps: int) -> float:
     captured into one CUDA graph, and the graph's replay is timed with CUDA
     events, so the host's part of a launch (allocating the outputs, the
     ctypes call) is not in the number."""
+    from polaris_tpu_torch.render.graph import gc_paused
+
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with gc_paused(), torch.cuda.graph(graph):
         for _ in range(reps):
             fn()
     graph.replay()
@@ -639,12 +671,13 @@ def graph_replays(kern: Bound, rays, any_hit: bool, where: str, times: int = 3) 
     times, its outputs spoiled before each replay: every replay writes
     the plain version's result, bit for bit."""
     from polaris_tpu_torch.ops.intersect import Hit
+    from polaris_tpu_torch.render.graph import gc_paused
 
     ref = kern.plain(rays, any_hit)
     kern.run(rays, any_hit)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with gc_paused(), torch.cuda.graph(graph):
         out = kern.run(rays, any_hit)
     fields_ = ("mask",) if any_hit else Hit._fields
     for _ in range(times):
@@ -2086,6 +2119,196 @@ def phase_parallel(scenes, smi: str):
     )
 
 
+def phase_modes(scenes, smi: str):
+    """The opt-in modes of the integrator and the traversal modes 'brute'
+    and 'packet' (see the module docstring). The default renderer is the
+    sequential loop (``regen=False``), which the three modes turn into."""
+    from polaris_tpu_torch.ops.intersect import make_intersectors
+    from polaris_tpu_torch.render.integrator import (
+        TorchRenderer, _bucket_positions, _compact_pos, _inv_perm, _octant_key,
+    )
+    from polaris_tpu_torch.render.options import RenderOptions
+
+    opt = RenderOptions(width=FRAME, height=FRAME, spp=MODES_SPP, num_bounces=BOUNCES,
+                        min_bounces_for_rr=RR_AFTER)
+    rows, k1_ms = {}, {}
+    for name in ("sphere", "cornell"):
+        renderers, want_accum, want_u8 = {}, None, None
+        for flag in ("default",) + OPT_MODES:
+            r = TorchRenderer(scenes[name], mode="auto",
+                              **({} if flag == "default" else {flag: True}))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            accum = r.render_accum(opt)  # a warm-up step, then the capture
+            torch.cuda.synchronize()
+            rows[f"{name}/{flag}"] = {
+                "all_ms": [], "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                "capture_s": r.capture_seconds,
+            }
+            if flag == "default":
+                want_accum = accum
+            elif not torch.equal(accum, want_accum):
+                fail(f"modes: {name} with {flag}=True: the accumulator differs from the "
+                     "sequential loop's")
+            renderers[flag] = r
+        # the modes' frames in turns, so that a change of the card's clock
+        # reaches them all alike
+        for _ in range(3):
+            for flag, r in renderers.items():
+                u8, ms, counts = timed_runs(lambda: r.render_u8(opt), 1)
+                row = rows[f"{name}/{flag}"]
+                row["all_ms"] += ms
+                row["frame_ms"] = min(row["all_ms"])
+                row["k1"] = k1_launches(counts, f"modes {name}/{flag}")
+                if want_u8 is None:
+                    want_u8 = u8
+                elif not np.array_equal(u8, want_u8):
+                    fail(f"modes: {name} with {flag}=True: the u8 image differs from the "
+                         "sequential loop's")
+        del renderers
+        # K1 alone on this frame's rays in lane order, grouped by octant
+        # (sort_rays) and with the live rays first (compact): ms a launch
+        r = TorchRenderer(scenes[name], mode="auto")
+        rays = frame_rays(r, FRAME, FRAME)
+        for key, any_hit in SETS:
+            o, d, maxt, active = rays[key]
+            fn = r.any_hit if any_hit else r.closest
+            orders = {
+                "lane": None,
+                "sort_rays": _inv_perm(_bucket_positions(_octant_key(d, active), 9)),
+                "compact": _inv_perm(_compact_pos(active)),
+            }
+            for order, perm in orders.items():
+                args = rays[key] if perm is None else tuple(
+                    torch.index_select(x, 0, perm).contiguous() for x in rays[key]
+                )
+                k1_ms[f"{name}/{key}/{order}"] = time_ms(lambda: fn(r.S, *args), 20)
+
+    # the traversal modes on cornell's frame of SMALL_FRAME^2
+    base = TorchRenderer(scenes["cornell"], mode="auto")
+    S = base.S
+    rays = frame_rays(base, SMALL_FRAME, SMALL_FRAME)
+    checks, steps = {}, []  # a graph frees its memory pool when it dies
+    brute, brute_any = make_intersectors(S, "brute")
+    dense, dense_any = make_intersectors(S, "pallas_dense")
+    packet, _ = make_intersectors(S, "packet")
+    for key, any_hit in (("primary", False), ("shadow", True)):
+        o, d, maxt, active = rays[key]
+        fn = brute_any if any_hit else brute
+        res = {}
+        step = base.step(lambda: res.update(out=fn(S, o, d, maxt, active)))
+        steps.append(step)
+        step()  # a warm-up, then the capture
+        for x in (res["out"],) if any_hit else res["out"]:
+            x.fill_(7)  # spoiled: the replay must rewrite it
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        replay_ms = (time.perf_counter() - t0) * 1e3
+        ref = (dense_any if any_hit else dense)(S, o, d, maxt, active)
+        checks[f"brute/{key}"] = dict(
+            cross_check(res["out"], ref, any_hit, int(o.shape[0]),
+                        f"modes: brute {key} against K5", "tol"),
+            replay_ms=replay_ms,
+        )
+    o, d, maxt, active = rays["primary"]
+    t0 = time.perf_counter()
+    got = packet(S, o, d, maxt, active)
+    torch.cuda.synchronize()
+    packet_ms = (time.perf_counter() - t0) * 1e3
+    ref = base.closest(S, o, d, maxt, active)
+    checks["packet/primary"] = dict(
+        cross_check(got, ref, False, int(o.shape[0]), "modes: packet primary against K1",
+                    "tol"),
+        host_ms=packet_ms,
+    )
+    emit("modes", card=smi, frame=f"{FRAME}x{FRAME}x{MODES_SPP}", frames=rows,
+         k1_ms_by_order=k1_ms, traversal=checks)
+
+
+def phase_cli(scenes, smi: str):
+    """The command line (see the module docstring)."""
+    import contextlib
+    import io
+
+    from polaris_tpu_torch import cli
+    from polaris_tpu_torch.render.integrator import TorchRenderer
+    from polaris_tpu_torch.render.options import RenderOptions
+
+    os.makedirs(SMOKE_DIR, exist_ok=True)
+    sphere_obj = os.path.join(HERE, "scenes", "sphere.obj")
+    cornell_obj = os.path.join(HERE, "scenes", "cornell.obj")
+    out = os.path.join(SMOKE_DIR, "cli_flagship.png")
+    argv = ["render", "frame", sphere_obj, "--width", str(FRAME), "--height", str(FRAME),
+            "--spp", str(VIEW_SPP), "--num-bounces", str(BOUNCES), "--rr-bounces",
+            str(RR_AFTER), "--regen", "--out", out]
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "polaris_tpu_torch.cli", *argv],
+                         capture_output=True, text=True, cwd=HERE, timeout=600)
+    wall_s = time.perf_counter() - t0
+    if run.returncode != 0:
+        fail(f"cli: render frame exited {run.returncode}: {run.stderr[-2000:]}")
+    total = [line for line in run.stdout.splitlines() if line.startswith("TOTAL")]
+    if not total:
+        fail(f"cli: no stats table in {run.stdout[-2000:]}")
+    opt = RenderOptions(width=FRAME, height=FRAME, spp=VIEW_SPP, num_bounces=BOUNCES,
+                        min_bounces_for_rr=RR_AFTER)
+    want = cli.quantize(TorchRenderer(scenes["sphere"], regen=True).render(opt))
+    with open(out, "rb") as f:
+        if not np.array_equal(decode_png(f.read()), want):
+            fail("cli: the flagship PNG differs from the in-process render")
+    flagship = {"table_total_ms": float(total[-1].split()[-2]), "subprocess_s": wall_s}
+
+    def main(args):
+        """``cli.main(args)`` in this process: (exit code, standard output,
+        seconds, launch counts)."""
+        buf = io.StringIO()
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(args)
+        seconds = time.perf_counter() - t0
+        if rc != 0:
+            fail(f"cli: {' '.join(args[:2])} exited {rc}")
+        return buf.getvalue(), seconds, read_launches()
+
+    snap = os.path.join(SMOKE_DIR, "cli_progressive.png")
+    _, prog_s, prog_counts = main(
+        ["render", "progressive", sphere_obj, "--width", str(FRAME), "--height", str(FRAME),
+         "--spp", str(VIEW_SPP), "--target-spp", str(2 * VIEW_SPP), "--snapshot-every",
+         str(VIEW_SPP), "--out", snap])
+    with open(snap, "rb") as f:
+        if decode_png(f.read()).shape != (FRAME, FRAME, 3):
+            fail("cli: the progressive snapshot has the wrong shape")
+    zip_path = os.path.join(SMOKE_DIR, "cornell.zip")
+    text, _, _ = main(["scene", "compile", cornell_obj, "--out", zip_path])
+    info, _, _ = main(["scene", "info", zip_path])
+    devices, _, _ = main(["devices"])
+    if "BVH nodes" not in text or "Triangles" not in info:
+        fail("cli: scene compile / info printed no stats table")
+    if torch.cuda.get_device_name(0) not in devices:
+        fail(f"cli: devices does not name the card: {devices}")
+
+    small = RenderOptions(width=SMALL_FRAME, height=SMALL_FRAME, spp=4, num_bounces=BOUNCES,
+                          min_bounces_for_rr=RR_AFTER)
+    modes = {}
+    for mode in ("pallas8_nodes", "brute"):
+        png = os.path.join(SMOKE_DIR, f"cli_{mode}.png")
+        _, seconds, counts = main(
+            ["render", "frame", zip_path, "--width", str(SMALL_FRAME), "--height",
+             str(SMALL_FRAME), "--spp", "4", "--mode", mode, "--out", png])
+        want = cli.quantize(TorchRenderer(scenes["cornell"], mode=mode).render(small))
+        with open(png, "rb") as f:
+            if not np.array_equal(decode_png(f.read()), want):
+                fail(f"cli: the --mode {mode} PNG differs from TorchRenderer(mode={mode!r})")
+        modes[mode] = {"seconds": seconds, "launches": counts}
+    if "K2" not in modes["pallas8_nodes"]["launches"] or modes["brute"]["launches"]:
+        fail(f"cli: --mode launches {modes}")
+    emit("cli", card=smi, flagship=flagship, progressive_s=prog_s,
+         progressive_k1=k1_launches(prog_counts, "cli progressive"), modes=modes)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2175,6 +2398,8 @@ def main() -> int:
         phase_denoise(scenes["cornell"], smi)
         phase_viewer(scenes, smi)
         phase_parallel(scenes, smi)
+        phase_modes(scenes, smi)
+        phase_cli(scenes, smi)
     for e in entries.values():
         e["launches"] = launches[e["kernel"]][
             FAMILIES[e["kernel"]]["keys"][1 if e["any_hit"] else 0]

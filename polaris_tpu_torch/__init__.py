@@ -7,6 +7,7 @@ hand-written CUDA under ``csrc/``. Imports ``torch`` only.
     from polaris_tpu_torch import (
         read_scene, compile_scene, SceneData,   # asset pipeline
         RenderOptions, TorchRenderer,           # rendering
+        TpuRenderer,                            # the JAX package's name of it
         upload_scene,                           # host -> device scene dict
         DifferentiableRenderer, Trainer,        # inverse rendering
         TrainConfig, denoise_accum,
@@ -14,6 +15,10 @@ hand-written CUDA under ``csrc/``. Imports ``torch`` only.
         Pipeline, default_pipeline,             # post-process chain
         DistributedRenderer, make_mesh,         # tile x sample mesh
     )
+
+Every public name of the JAX package is here but ``CpuRenderer``, its NumPy
+oracle (``cpu_ref/``), which waits for a slice of its own. The command line
+is ``polaris_tpu_torch/cli.py`` (``python -m polaris_tpu_torch.cli``).
 """
 
 __version__ = "0.1.0"
@@ -41,7 +46,7 @@ def __getattr__(name):
         from .render.options import RenderOptions
 
         return RenderOptions
-    if name == "TorchRenderer":
+    if name in ("TorchRenderer", "TpuRenderer"):
         from .render.integrator import TorchRenderer
 
         return TorchRenderer

@@ -39,6 +39,10 @@ node slab-tests both children, a TLAS leaf enters an instance, a BLAS leaf
 tests ALL of its triangles at once (dense ``[lanes, leaf]`` arithmetic
 instead of one triangle per trip; first-minimum selection keeps the
 sequential strict-``<`` result).
+
+The JAX package's two XLA traversals are here in plain PyTorch too:
+``intersect_brute`` (mode 'brute': every triangle of every instance, no
+BVH) and, in ``intersect_packet.py``, mode 'packet'.
 """
 
 from __future__ import annotations
@@ -617,6 +621,79 @@ def traverse_binary(
     return Hit(t, best_inst, best_tri, best_u, best_v, active & found)
 
 
+# ----------------------------------------------------------------- brute mode
+
+
+def collect_blas_triangles(scene, root: int) -> np.ndarray:
+    """Walk a BLAS subtree on the host and return its triangle indices,
+    sorted: inner nodes have ldata > 0, bottom leaves store (-first_tri,
+    count). A copy of the JAX package's
+    ``cpu_ref/renderer.py::_collect_blas_triangles``."""
+    tris = []
+    stack = [root]
+    while stack:
+        i = stack.pop()
+        l = int(scene.bvh_ldata[i])
+        r = int(scene.bvh_rdata[i])
+        if l > 0:
+            stack.extend([l, r])
+        else:
+            first, count = -l, r
+            tris.extend(range(first, first + count))
+    return np.asarray(sorted(tris), np.int64)
+
+
+def instance_tri_ranges(scene) -> tuple:
+    """``(first_tri, num_tris)`` of each instance's BLAS, which must be one
+    contiguous run of triangles."""
+    ranges = []
+    for root in scene.inst_bvh_root:
+        tris = collect_blas_triangles(scene, int(root))
+        first, count = int(tris.min()), int(tris.size)
+        if tris.max() - first + 1 != count:
+            raise ValueError("BLAS triangle range is not contiguous")
+        ranges.append((first, count))
+    return tuple(ranges)
+
+
+def intersect_brute(S, o, d, maxt, active, *, inst_tri_ranges, chunk: int = 8192) -> Hit:
+    """Closest hit over every triangle of every instance, without a BVH: the
+    JAX package's ``intersect_brute``. Rays go ``chunk`` at a time, and each
+    chunk tests each instance's run of triangles densely (``mt_block``, the
+    quotient-form test of its ``_mt_dense``), the best ``t`` so far the
+    upper bound of the next instance. Fixed shapes and no host read, so it
+    can be captured into a CUDA graph."""
+    T = TriArrays(S["tri_v0"], S["tri_e1"], S["tri_e2"])
+    w2o = S["inst_w2o"]
+    best_t = torch.where(active, maxt, 0.0).to(torch.float32)
+    n = o.shape[0]
+    dev = o.device
+    best_tri = torch.zeros(n, dtype=torch.int32, device=dev)
+    best_inst = torch.zeros(n, dtype=torch.int32, device=dev)
+    best_u = torch.zeros(n, dtype=torch.float32, device=dev)
+    best_v = torch.zeros(n, dtype=torch.float32, device=dev)
+    found = torch.zeros(n, dtype=torch.bool, device=dev)
+    for c0 in range(0, n, chunk):
+        rows = slice(c0, min(c0 + chunk, n))
+        co, cd = o[rows], d[rows]
+        m = co.shape[0]
+        for ii, (first, count) in enumerate(inst_tri_ranges):
+            mat = w2o[ii:ii + 1].expand(m, -1, -1)
+            oo = _xform(mat, co, 1)
+            dd = _xform(mat, cd, 0)
+            tri = torch.arange(first, first + count, device=dev).expand(m, count)
+            valid = torch.ones((1, 1), dtype=torch.bool, device=dev)
+            upd, t, u, v, btri = mt_block(T, tri, valid, oo, dd, best_t[rows], closest=True)
+            best_t[rows] = torch.where(upd, t, best_t[rows])
+            best_tri[rows] = torch.where(upd, btri.to(torch.int32), best_tri[rows])
+            best_inst[rows] = torch.where(upd, ii, best_inst[rows])
+            best_u[rows] = torch.where(upd, u, best_u[rows])
+            best_v[rows] = torch.where(upd, v, best_v[rows])
+            found[rows] |= upd
+    t = torch.where(found, best_t, 0.0)
+    return Hit(t, best_inst, best_tri, best_u, best_v, active & found)
+
+
 # the fields of a compiled scene the traversal packers read
 _GEOMETRY = (
     "bvh_ldata", "bvh_rdata", "bvh_min", "bvh_max", "tri_v0", "tri_e1",
@@ -635,13 +712,6 @@ MODES = (
     "auto", "kernel", "pallas", "bvh", "pallas_stream", "pallas_nodes", "pallas8",
     "pallas8_nodes", "pallas_dense", "hybrid", "packet", "brute",
 )
-
-# the JAX package's XLA modes, which the port has no plain version of yet,
-# and the port's mode that computes the same hits
-SUBSTITUTES = {
-    "packet": "'auto' (the binary kernel K1; its plain version on a CPU scene)",
-    "brute": "'pallas_dense' (every triangle of every instance)",
-}
 
 # the modes that run the binary kernel K1, the only kernel with two triangle
 # tests ('auto' resolves to one of them)
@@ -698,8 +768,15 @@ def make_intersectors(S, mode: str = "auto", tri_test: Optional[str] = None):
                       K2 on every scene the grid times); on the CPU the
                       binary kernel's wrappers, which run its plain version
                       there
-      'packet', 'brute'  the JAX package's XLA traversals: not ported, they
-                      raise and name the port's mode to use (``SUBSTITUTES``)
+      'packet'        the JAX package's XLA twin of its binary kernel in
+                      plain PyTorch (``intersect_packet``): tiles of 64
+                      rays sharing one stack. It reads its
+                      loop test back to the host, so a renderer on a card
+                      refuses it as it refuses 'bvh'
+      'brute'         no BVH: every triangle of every instance, quotient
+                      form, rays in chunks of 8192
+                      (``intersect_brute``; fixed shapes, any device, and
+                      capturable into a CUDA graph)
 
     The scene is packed once here, on the host, and the packed arrays are
     uploaded to the scene's device. A mode with a CUDA kernel runs that
@@ -712,11 +789,6 @@ def make_intersectors(S, mode: str = "auto", tri_test: Optional[str] = None):
     device = S["bvh_ldata"].device
     if mode not in MODES:
         raise ValueError(f"unknown traversal mode {mode!r} ({' | '.join(MODES)})")
-    if mode in SUBSTITUTES:
-        raise ValueError(
-            f"mode {mode!r} is an XLA traversal of the JAX package that the port "
-            f"does not have; use {SUBSTITUTES[mode]}"
-        )
     if mode == "auto":
         mode = "kernel" if device.type == "cuda" else "pallas_stream"
     elif mode == "pallas":
@@ -748,6 +820,28 @@ def make_intersectors(S, mode: str = "auto", tri_test: Optional[str] = None):
 
         def any_hit(S, o, d, maxt, active):
             return intersect_bvh(S, o, d, maxt, active, any_hit=True, leaf="quot").mask
+
+        return closest, any_hit
+
+    if mode == "packet":
+        from .intersect_packet import intersect_packet
+
+        def closest(S, o, d, maxt, active):
+            return intersect_packet(S, o, d, maxt, active, any_hit=False)
+
+        def any_hit(S, o, d, maxt, active):
+            return intersect_packet(S, o, d, maxt, active, any_hit=True).mask
+
+        return closest, any_hit
+
+    if mode == "brute":
+        ranges = instance_tri_ranges(host_geometry(S))
+
+        def closest(S, o, d, maxt, active):
+            return intersect_brute(S, o, d, maxt, active, inst_tri_ranges=ranges)
+
+        def any_hit(S, o, d, maxt, active):
+            return closest(S, o, d, maxt, active).mask
 
         return closest, any_hit
 

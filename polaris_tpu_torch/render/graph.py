@@ -30,16 +30,36 @@ every wrapper counts: another thread's launches wait to be counted until the
 capture's own are taken out. And a capture fails only on this thread's
 unsafe calls (``thread_local`` mode): the other threads go on launching,
 allocating and synchronising their own streams meanwhile.
+
+A renderer and its programs refer to each other, so a dropped renderer's
+graphs are freed by the cyclic garbage collector, whenever it runs. A
+collection during a capture would destroy a graph while the stream
+captures, which CUDA refuses, and the capture would be lost; so a capture
+runs with the collector paused (``gc_paused``).
 """
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import time
 from typing import Callable, List, Tuple
 
 import torch
 
 from ..ops import _launch
+
+
+@contextlib.contextmanager
+def gc_paused():
+    """The cyclic garbage collector off for the block, as it was after."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 class Step:
@@ -93,7 +113,7 @@ class Step:
             # (tests/test_torch_compiled.py's)
             capture.capture_error_mode = "thread_local"
             try:
-                with capture:
+                with gc_paused(), capture:
                     self.fn()
             finally:
                 self.launches = [

@@ -34,7 +34,7 @@ import torch
 from ..asset.camera import Camera
 from ..ops import rng
 from ..ops import vec as V
-from ..ops.intersect import make_intersectors
+from ..ops.intersect import Hit, make_intersectors
 from ..ops.material import material_tree_depth
 from ..scene import as_scene_data, resolve_device, upload_scene
 from ..utils.log import Timer, get_logger
@@ -85,13 +85,83 @@ def blocked_pixel_order(width: int, height: int, block: int = 0):
     return xs, ys, pixel_idx, inv_lane.astype(np.int32)
 
 
+# ----- lane permutations of the opt-in modes (compact, sort_rays) -----
+
+
+def _compact_pos(mask):
+    """Stable partition target slots: masked lanes first, the others after,
+    each in lane order: ``position[i]`` is lane i's rank within its class,
+    from prefix sums (no sort)."""
+    a = mask.to(torch.int64)
+    live_pos = torch.cumsum(a, 0) - 1
+    dead_pos = a.sum() + torch.cumsum(1 - a, 0) - 1
+    return torch.where(mask, live_pos, dead_pos)
+
+
+def _inv_perm(pos):
+    """Invert a permutation with one integer scatter; data then moves with
+    row gathers (``_take``)."""
+    lanes = torch.arange(pos.shape[0], dtype=pos.dtype, device=pos.device)
+    return torch.zeros_like(pos).scatter_(0, pos, lanes)
+
+
+def _take(x, idx):
+    """Rows ``idx`` of ``x`` (a gather, capturable into a CUDA graph)."""
+    return torch.index_select(x, 0, idx)
+
+
+def _octant_key(d, mask):
+    """Bucket id per lane: direction octant (0..7), dead lanes last (8)."""
+    octant = (
+        (d[..., 0] < 0).to(torch.int64)
+        | ((d[..., 1] < 0).to(torch.int64) << 1)
+        | ((d[..., 2] < 0).to(torch.int64) << 2)
+    )
+    return torch.where(mask, octant, 8)
+
+
+def _bucket_positions(key, num_buckets: int):
+    """Stable counting-sort target slots from one prefix sum per bucket:
+    lanes keep their blocked order inside each bucket, which keeps ray
+    origins coherent."""
+    pos = torch.zeros_like(key)
+    offset = torch.zeros((), dtype=key.dtype, device=key.device)
+    for b in range(num_buckets):
+        m = key == b
+        c = torch.cumsum(m.to(key.dtype), 0)
+        pos = torch.where(m, offset + c - 1, pos)
+        offset = offset + c[-1]
+    return pos
+
+
+def sorted_pass(fn, *, any_hit: bool):
+    """Wrap an intersector so each call traverses its rays grouped by
+    direction octant, dead lanes last (the JAX package's
+    ``make_sorted_pass``): rays that descend the BVH the same way sit
+    together while same-block rays stay adjacent. Hits are gathered back to
+    lane order, so images are bit-identical: the RNG keys by pixel id, not
+    by lane."""
+
+    def run(S, o, d, maxt, mask):
+        pos = _bucket_positions(_octant_key(d, mask), 9)
+        perm = _inv_perm(pos)  # slot -> lane
+        res = fn(S, _take(o, perm), _take(d, perm), _take(maxt, perm), _take(mask, perm))
+        if any_hit:
+            return _take(res, pos)
+        return Hit(*(_take(x, pos) for x in res))
+
+    return run
+
+
 def _trace_bounce(
     S, closest, any_hit, *, ray_o, ray_d, maxt, alive, throughput, flags,
     radiance, U, bounce, is_primary, min_bounces_for_rr, num_emissives,
-    scene_diffuse_mat, material_depth,
+    scene_diffuse_mat, material_depth, compact: bool = False,
 ):
     """One closest-hit + shade + NEE-occlusion pass over all lanes — the body
-    both sample loops share. Returns (radiance, shade-output dict)."""
+    both sample loops share. Returns (radiance, shade-output dict).
+    ``compact`` packs the shadow rays into the leading lanes for the any-hit
+    pass and maps the verdicts back."""
     hit = closest(
         S, ray_o.detach().contiguous(), ray_d.detach().contiguous(), maxt, alive
     )
@@ -121,13 +191,14 @@ def _trace_bounce(
     radiance = radiance + out["emit_add"]
     if num_emissives > 0:
         om = out["occl_mask"]
-        occluded = any_hit(
-            S,
-            out["occl_o"].detach().contiguous(),
-            out["occl_d"].detach().contiguous(),
-            out["occl_maxt"].detach(),
-            om,
-        )
+        rays = (out["occl_o"].detach(), out["occl_d"].detach(), out["occl_maxt"].detach(), om)
+        if compact:
+            # shadow rays are far sparser than live lanes: packed apart
+            opos = _compact_pos(om)
+            oinv = _inv_perm(opos)
+            occluded = _take(any_hit(S, *(_take(x, oinv) for x in rays)), opos)
+        else:
+            occluded = any_hit(S, *(x.contiguous() for x in rays))
         nee = om & (~occluded)
         radiance = radiance + torch.where(nee[..., None], out["occl_value"], 0.0)
     return radiance, out
@@ -155,13 +226,19 @@ def render_sample_block(
     rr_tile_coherent: bool = False,
     active_init=None,
     closest_bounce=None,
+    compact: bool = False,
 ):
     """Trace ONE sample for a block of pixels; returns radiance [N, 3].
 
     ``pixel_*`` are full-frame coordinates, so a block of any shape behaves
-    exactly like the same pixels of a full-frame render. ``closest_bounce``,
+    exactly like the same pixels of a full-frame render. ``sample_idx`` is
+    one index (an int or a 0-d tensor) or one per lane. ``closest_bounce``,
     when given, finds the closest hits of every bounce after the first
     (the 'hybrid' traversal: another kernel for incoherent rays).
+    ``compact`` packs the live lanes into the leading lanes before each
+    closest-hit pass, carrying each lane's pixel (and sample) index, which
+    key its draws, and its own lane id, which brings the radiance back to
+    lane order at the end: the result is bit-identical.
     """
     n = pixel_idx.shape[0]
     dev = pixel_idx.device
@@ -177,9 +254,20 @@ def render_sample_block(
     radiance = torch.zeros((n, 3), dtype=torch.float32, device=dev)
     maxt = torch.full((n,), V.FLT_MAX, dtype=torch.float32, device=dev)
     rr_key = rng.rr_block_key(pixel_idx, width) if rr_tile_coherent else None
+    pix, lane = pixel_idx, (torch.arange(n, device=dev) if compact else None)
 
     for b in range(num_bounces):
-        U = rng.make_uniform(seed, pixel_idx, sample_idx, b, rr_key=rr_key)
+        if compact:
+            inv = _inv_perm(_compact_pos(alive))
+            ray_o, ray_d, throughput, flags, alive, radiance, pix, lane = (
+                _take(x, inv)
+                for x in (ray_o, ray_d, throughput, flags, alive, radiance, pix, lane)
+            )
+            if rr_key is not None:
+                rr_key = _take(rr_key, inv)
+            if torch.is_tensor(sample_idx) and sample_idx.dim():
+                sample_idx = _take(sample_idx, inv)
+        U = rng.make_uniform(seed, pix, sample_idx, b, rr_key=rr_key)
         radiance, out = _trace_bounce(
             S, closest_bounce if (closest_bounce is not None and b > 0) else closest,
             any_hit,
@@ -190,10 +278,34 @@ def render_sample_block(
             num_emissives=num_emissives,
             scene_diffuse_mat=scene_diffuse_mat,
             material_depth=material_depth,
+            compact=compact,
         )
         ray_o, ray_d = out["next_o"], out["next_d"]
         throughput, flags, alive = out["throughput"], out["flags"], out["next_mask"]
+    if compact:
+        radiance = _take(radiance, _inv_perm(lane))
     return radiance
+
+
+def render_sample_batch(S, closest, any_hit, *, pixel_x, pixel_y, pixel_idx, spp: int,
+                        sample_offset, **kw):
+    """``spp`` samples from ``sample_offset`` (an int or a 0-d tensor) of
+    every lane as ONE wide batch of ``spp * n`` lanes, sample-major, through
+    ``render_sample_block`` (``kw``: its other arguments); the partials are
+    summed in sample order, ``parts[0] + parts[1] + ...``, the association
+    of the sequential loop, so the sum is bit-identical to it. The JAX
+    package's ``batch_samples`` program. Returns [n, 3]."""
+    n = pixel_idx.shape[0]
+    sample = sample_offset + torch.arange(spp, device=pixel_idx.device).repeat_interleave(n)
+    rad = render_sample_block(
+        S, closest, any_hit, pixel_x=pixel_x.repeat(spp), pixel_y=pixel_y.repeat(spp),
+        pixel_idx=pixel_idx.repeat(spp), sample_idx=sample, **kw,
+    )
+    parts = rad.reshape(spp, n, 3)
+    accum = parts[0]
+    for s in range(1, spp):
+        accum = accum + parts[s]
+    return accum
 
 
 def _primary(*, seed, frustum, eye, width, height, pixel_x, pixel_y, pixel_idx, s):
@@ -213,7 +325,8 @@ def band_pixels(xs, ys, row0, width: int):
 
 def render_band_eager(r, opt: RenderOptions, *, frustum, eye, seed=None, y0=0,
                       band_h: Optional[int] = None, sample_offset=0, S: Optional[Dict] = None,
-                      closest=None, any_hit=None, closest_bounce=None) -> torch.Tensor:
+                      closest=None, any_hit=None, closest_bounce=None,
+                      compact: bool = False) -> torch.Tensor:
     """The sequential sample loop op by op: ``opt.spp`` samples from
     ``sample_offset`` of ``render_sample_block`` over the lanes of rows
     ``[y0, y0 + band_h)`` (the whole frame by default), summed from zeros in
@@ -225,7 +338,7 @@ def render_band_eager(r, opt: RenderOptions, *, frustum, eye, seed=None, y0=0,
     (``parallel/mesh.py``), which pass scene tensors ``S`` that carry a
     gradient. ``seed`` (a Python int or a 0-d tensor) defaults to
     ``opt.seed``; ``closest`` / ``any_hit`` / ``closest_bounce`` to the
-    renderer's."""
+    renderer's; ``compact`` as ``render_sample_block``'s."""
     W = opt.width
     band_h = band_h or opt.height
     xs, ys, _, _ = r._pixel_order(W, band_h)
@@ -236,7 +349,7 @@ def render_band_eager(r, opt: RenderOptions, *, frustum, eye, seed=None, y0=0,
         num_bounces=opt.num_bounces, min_bounces_for_rr=opt.min_bounces_for_rr,
         num_emissives=r.num_emissives, scene_diffuse_mat=r.scene_diffuse_mat,
         material_depth=r.material_depth, rr_tile_coherent=opt.rr_tile_coherent,
-        closest_bounce=closest_bounce or r.closest_bounce,
+        closest_bounce=closest_bounce or r.closest_bounce, compact=compact,
     )
     accum = torch.zeros((W * band_h, 3), dtype=torch.float32, device=r.device)
     for s in range(opt.spp):
@@ -496,7 +609,7 @@ class _BandProgram(_Program):
             self.part.add_(
                 render_sample_block(
                     r.S, r.closest, r.any_hit, sample_idx=self.offset,
-                    closest_bounce=r.closest_bounce, **common,
+                    closest_bounce=r.closest_bounce, compact=r.compact, **common,
                 )
             )
             self.offset.add_(1)
@@ -535,7 +648,8 @@ class _AdaptiveProgram(_Program):
             for s in range(chunk):
                 rad = render_sample_block(
                     r.S, r.closest, r.any_hit, sample_idx=self.offset + s,
-                    closest_bounce=r.closest_bounce, active_init=act, **self.common,
+                    closest_bounce=r.closest_bounce, active_init=act, compact=r.compact,
+                    **self.common,
                 )
                 lum = V.luminance(rad)
                 self.accum.add_(rad)
@@ -555,7 +669,28 @@ class _AdaptiveProgram(_Program):
         self.run_chunk = self.step(run_chunk)
 
 
-_LOOPS = {"regen": _RegenProgram, "sequential": _BandProgram, "adaptive": _AdaptiveProgram}
+class _BatchProgram(_Program):
+    """The sample-batched loop (``batch_samples``): one step renders all
+    ``chunk`` samples of a launch as one batch of ``chunk * n`` lanes
+    (``render_sample_batch``) into ``part``."""
+
+    def __init__(self, r, opt, chunk: int):
+        super().__init__(r, opt)
+        self.part = torch.zeros((self.n, 3), dtype=torch.float32, device=r.device)
+
+        def launch():
+            self.part.copy_(render_sample_batch(
+                r.S, r.closest, r.any_hit, spp=chunk, sample_offset=self.offset,
+                closest_bounce=r.closest_bounce, compact=r.compact, **self.common,
+            ))
+
+        self.launch = self.step(launch)
+
+
+_LOOPS = {
+    "regen": _RegenProgram, "sequential": _BandProgram, "adaptive": _AdaptiveProgram,
+    "batch": _BatchProgram,
+}
 
 
 class TorchRenderer:
@@ -570,6 +705,16 @@ class TorchRenderer:
     bounces after the first onto another kernel ('hybrid') cannot
     regenerate, because regeneration mixes bounce depths in one pass: the
     renderer then warns and takes the sequential sample loop.
+
+    Three opt-in modes of the sample loop, each bit-identical to the
+    sequential loop, and each turning ``regen`` off silently, as in the JAX
+    package: ``compact`` packs the live lanes (and, apart, the shadow rays)
+    into the leading lanes before each traversal (``render_sample_block``);
+    ``sort_rays`` groups every traversal's rays by direction octant
+    (``sorted_pass``); ``batch_samples`` renders the samples of a launch as
+    one wide batch of lanes (``render_sample_batch``; frames only, bands and
+    adaptive sampling keep the sequential loop). ``compact`` reaches frames,
+    bands and adaptive sampling.
 
     Every frame runs as compiled launches, the counterpart of the JAX
     package's programs: one step of the loop (a regeneration trip, a sample
@@ -597,18 +742,22 @@ class TorchRenderer:
     spp_per_launch = 8
 
     def __init__(
-        self, scene, device=None, mode: str = "auto", regen: bool = False,
+        self, scene, device=None, mode: str = "auto", compact: bool = False,
+        sort_rays: bool = False, batch_samples: bool = False, regen: bool = False,
         tri_test: Optional[str] = None,
     ):
         self.device = resolve_device(device)
-        if mode == "bvh" and self.device.type == "cuda":
+        if mode in ("bvh", "packet") and self.device.type == "cuda":
             raise ValueError(
-                "mode 'bvh' is the plain PyTorch traversal, which reads its "
+                f"mode {mode!r} is a plain PyTorch traversal, which reads its "
                 "loop condition back to the host and cannot be captured into "
                 "a CUDA graph; on a card use a kernel mode ('auto')"
             )
         self.scene = as_scene_data(scene)
-        self.regen = regen
+        self.compact = compact
+        self.sort_rays = sort_rays
+        self.batch_samples = batch_samples
+        self.regen = regen and not (compact or sort_rays or batch_samples)
         self.S = upload_scene(self.scene, self.device)
         self.closest, self.any_hit = make_intersectors(self.S, mode, tri_test)
         self.closest_bounce = getattr(self.closest, "closest_bounce", None)
@@ -618,6 +767,11 @@ class TorchRenderer:
                 "bounce kernel; using the sequential sample loop"
             )
             self.regen = False
+        if sort_rays:
+            self.closest = sorted_pass(self.closest, any_hit=False)
+            self.any_hit = sorted_pass(self.any_hit, any_hit=True)
+            if self.closest_bounce is not None:
+                self.closest_bounce = sorted_pass(self.closest_bounce, any_hit=False)
         self.num_emissives = int(self.scene.emis_area.shape[0])
         self.scene_diffuse_mat = int(self.scene.scene_diffuse_mat)
         self.material_depth = material_tree_depth(
@@ -706,8 +860,9 @@ class TorchRenderer:
     def _block_partial(self, opt: RenderOptions, frustum, eye, sample_offset: int,
                        band=None):
         """Sum of ``opt.spp`` samples' radiance in BLOCKED lane order, summed
-        from zero, through the regeneration loop or the sequential sample
-        loop; ``band`` = ``(y0, band_h)``: those rows' lanes, through the
+        from zero, through the regeneration loop, the sequential sample
+        loop or, with ``batch_samples`` and more than one sample, one batch
+        of lanes; ``band`` = ``(y0, band_h)``: those rows' lanes, through the
         sequential loop whichever loop this renderer runs. Returns a static
         buffer of the loop's program: the next launch of that shape
         overwrites it."""
@@ -729,6 +884,14 @@ class TorchRenderer:
                     break
             self._trips.add_(prog.trips)
             return prog.carry["radiance"]
+        if self.batch_samples and band is None and opt.spp > 1:
+            prog = self._program(opt, opt.spp, "batch")
+            prog.set(opt.seed, frustum, eye, sample_offset)
+            prog.launch()
+            # one pass a bounce over the launch's samples together
+            self.last_trips += opt.num_bounces
+            self.last_trips_run += opt.num_bounces
+            return prog.part
         y0, band_h = band or (0, 0)
         prog = self._program(opt, opt.spp, "sequential", band_h)
         prog.set(opt.seed, frustum, eye, sample_offset)
@@ -988,7 +1151,20 @@ def render_blocked_eager(r: TorchRenderer, opt: RenderOptions, camera: Optional[
                 num_emissives=r.num_emissives, scene_diffuse_mat=r.scene_diffuse_mat,
                 material_depth=r.material_depth, rr_tile_coherent=opt.rr_tile_coherent,
             )
-        part = render_band_eager(r, replace(opt, spp=spp), sample_offset=offset, **common)
+        if r.batch_samples and spp > 1:
+            xs, ys, pix, _ = r._pixel_order(opt.width, opt.height)
+            part = render_sample_batch(
+                r.S, closest or r.closest, any_hit or r.any_hit, pixel_x=xs, pixel_y=ys,
+                pixel_idx=pix, spp=spp, sample_offset=offset, frustum=frustum, eye=eye,
+                width=opt.width, height=opt.height, seed=int(opt.seed) & 0xFFFFFFFF,
+                num_bounces=opt.num_bounces, min_bounces_for_rr=opt.min_bounces_for_rr,
+                num_emissives=r.num_emissives, scene_diffuse_mat=r.scene_diffuse_mat,
+                material_depth=r.material_depth, rr_tile_coherent=opt.rr_tile_coherent,
+                closest_bounce=r.closest_bounce, compact=r.compact,
+            )
+            return part, opt.num_bounces
+        part = render_band_eager(r, replace(opt, spp=spp), sample_offset=offset,
+                                 compact=r.compact, **common)
         return part, spp * opt.num_bounces
 
     if opt.spp <= r.spp_per_launch:

@@ -223,9 +223,12 @@ def test_step_counts_the_launches_its_replays_make(monkeypatch):
     """A capture runs a wrapper's Python once and launches nothing: its
     counts are taken back out of LAUNCHES and kept as the graph's, and each
     replay adds them. The first call also runs the step once for real (the
-    warm-up), on the capture stream. CUDA's graph calls are stood in for by
-    fakes here; the card's own run is chip_smoke.py's launch check."""
+    warm-up), on the capture stream, and the capture runs with the cyclic
+    garbage collector paused (a collection could free another graph while
+    the stream captures). CUDA's graph calls are stood in for by fakes here;
+    the card's own run is chip_smoke.py's launch check."""
     import contextlib
+    import gc
 
     from polaris_tpu_torch.ops import intersect_cuda, intersect_dense
     from polaris_tpu_torch.render import graph
@@ -242,7 +245,7 @@ def test_step_counts_the_launches_its_replays_make(monkeypatch):
 
     @contextlib.contextmanager
     def capturing(g, pool=None, stream=None):
-        events.append("capture")
+        events.append("capture" if gc.isenabled() else "capture, gc paused")
         yield
 
     monkeypatch.setattr(graph.torch.cuda, "CUDAGraph", FakeGraph)
@@ -259,7 +262,8 @@ def test_step_counts_the_launches_its_replays_make(monkeypatch):
 
     step = graph.Step(fn, torch.device("cuda", 0), FakeStream(), None)
     step()
-    assert events == ["run", "capture", "run"]
+    assert events == ["run", "capture, gc paused", "run"]
+    assert gc.isenabled()
     assert intersect_cuda.LAUNCHES["closest_hit"] == 1  # the warm-up's, not the capture's
     assert intersect_dense.LAUNCHES["any_hit"] == 2
     for _ in range(3):

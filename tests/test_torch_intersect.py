@@ -15,6 +15,11 @@ Havel–Herout form against the Pallas kernel, with a tighter bound):
     replaces, in Pallas interpret mode: one closest-hit and one any-hit call
     on one ``BLOCK_RAYS`` batch
 
+The port's own XLA twins, ``mode="packet"`` (``ops/intersect_packet.py``)
+and ``mode="brute"`` (``intersect_brute``), are held against the JAX
+``intersect_packet`` and ``intersect_brute`` on the same rays with the same
+tolerances.
+
 Tolerances, on lanes where both sides report the same triangle: ``t`` within
 ``rtol=1e-5, atol=1e-6``; ``u, v`` within ``atol=1e-4``. A barycentric is a
 quotient of dot products that cancel: its rounding error scales with
@@ -161,6 +166,14 @@ def cases(compiled):
                     S_j, *rays_j, any_hit=any_hit
                 )
             )
+        for mode in ("packet", "brute"):
+            closest, occluded = tix.make_intersectors(S_t, mode)
+            rec[f"torch_{mode}", "closest"] = _torch_hit_to_numpy(closest(S_t, *rays_t))
+            rec[f"torch_{mode}", "any"] = {"mask": occluded(S_t, *rays_t).numpy()}
+        # the JAX brute any hit is its closest hit's mask
+        closest, _ = jix.make_intersectors(S_j, scene, "brute")
+        rec["brute", "closest"] = _hit_to_numpy(jax.jit(closest)(S_j, *rays_j))
+        rec["brute", "any"] = {"mask": rec["brute", "closest"]["mask"]}
         out[name] = rec
     return out
 
@@ -221,6 +234,19 @@ def test_any_hit_matches_jax(cases, name, ref_name):
         rec["torch", "any"], rec[ref_name, "any"], rec["rays"][3],
         f"{name}/any/{ref_name}",
     )
+
+
+@pytest.mark.parametrize("mode", ["packet", "brute"])
+@pytest.mark.parametrize("name", SCENES)
+def test_xla_traversals_match_jax(cases, name, mode):
+    """The port's ``mode="packet"`` / ``"brute"`` against the JAX
+    ``intersect_packet`` / ``intersect_brute``: closest hit and any hit."""
+    rec = cases[name]
+    active = rec["rays"][3]
+    _assert_closest_agrees(
+        rec[f"torch_{mode}", "closest"], rec[mode, "closest"], active, f"{name}/closest/{mode}"
+    )
+    _assert_any_agrees(rec[f"torch_{mode}", "any"], rec[mode, "any"], active, f"{name}/any/{mode}")
 
 
 @pytest.mark.parametrize("name", SCENES)

@@ -7,8 +7,8 @@
    take the Havel-Herout test. An explicit ``tri_test="hh"`` with a mode
    that has no such test still raises.
 2. The JAX package's mode names: ``pallas`` is the port's ``kernel``;
-   ``packet`` and ``brute`` (XLA traversals the port has no plain version
-   of) raise and name the port's mode to use.
+   ``packet`` and ``brute``, its XLA traversals, which the port once refused
+   naming a substitute, build intersectors whose hits equal ``bvh``'s.
 3. Every file the port copies verbatim from the JAX package is byte for
    byte the original: ``asset/**``, ``native/__init__.py``, the native
    sources, ``types.py``, ``utils/log.py``, ``render/options.py``.
@@ -40,10 +40,10 @@ PORT_PKG = os.path.join(REPO, "polaris_tpu_torch")
 FLT_MAX = float(np.finfo(np.float32).max)
 
 # every mode that builds on a CPU scene ('kernel' and its alias 'pallas'
-# need a card; 'packet' and 'brute' are not ported)
+# need a card)
 CPU_MODES = (
     "auto", "pallas_stream", "hybrid", "bvh", "pallas_nodes", "pallas8",
-    "pallas8_nodes", "pallas_dense",
+    "pallas8_nodes", "pallas_dense", "packet", "brute",
 )
 # of those, the modes whose closest hit runs K1 (its plain version here)
 RUNS_K1 = ("auto", "pallas_stream", "hybrid")
@@ -148,12 +148,22 @@ def test_pallas_is_kernel(cornell, monkeypatch, mode):
     assert calls == ["hh"]
 
 
-@pytest.mark.parametrize("mode,substitute", [("packet", "'auto'"), ("brute", "'pallas_dense'")])
-def test_xla_modes_raise_naming_the_substitute(cornell, mode, substitute):
+@pytest.mark.parametrize("mode", ["packet", "brute"])
+def test_xla_modes_raise_naming_the_substitute(cornell, mode):
+    """The JAX package's XLA traversals, which this test once found refused
+    with the port's substitute named, now build; on cornell's rays their
+    hits equal the quotient-form ``bvh``'s field for field (``packet`` and
+    ``brute`` run the same triangle test; cornell has no exact tie on these
+    rays). An unknown mode still raises and lists the modes."""
     assert mode in tix.MODES
-    with pytest.raises(ValueError) as err:
-        tix.make_intersectors(cornell, mode)
-    assert f"mode {mode!r}" in str(err.value) and f"use {substitute}" in str(err.value)
+    rays = _rays(cornell)
+    closest, any_hit = tix.make_intersectors(cornell, mode)
+    ref_closest, ref_any = tix.make_intersectors(cornell, "bvh")
+    hit, ref = closest(cornell, *rays), ref_closest(cornell, *rays)
+    assert hit.mask.any()
+    for f in tix.Hit._fields:
+        assert torch.equal(getattr(hit, f), getattr(ref, f)), f
+    assert torch.equal(any_hit(cornell, *rays), ref_any(cornell, *rays))
     with pytest.raises(ValueError, match=re.escape("| hybrid | packet | brute)")):
         tix.make_intersectors(cornell, "pallas_wide")
 
@@ -192,3 +202,15 @@ def test_bvh_mode_renders_a_single_leaf_mesh(textured_scene):
         if mode == "pallas8":
             assert torch.equal(other, got), mode
         np.testing.assert_allclose(other.numpy(), got.numpy(), atol=2e-4, rtol=1e-3, err_msg=mode)
+
+
+def test_packet_mode_refuses_a_card(scenes_dir, monkeypatch):
+    """``packet`` reads its loop test back to the host, as ``bvh`` does, so a
+    renderer on a card refuses it with the same message, naming 'auto'."""
+    import polaris_tpu_torch.render.integrator as integrator
+
+    monkeypatch.setattr(integrator, "resolve_device", lambda d: torch.device("cuda", 0))
+    with pytest.raises(ValueError, match=r"mode 'packet' is a plain PyTorch traversal.*'auto'"):
+        integrator.TorchRenderer(
+            compile_scene(read_scene(os.path.join(scenes_dir, "cornell.obj"))), mode="packet"
+        )
