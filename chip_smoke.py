@@ -155,6 +155,23 @@ printing one JSON line:
             and cornell 256x256, 4 spp frames with ``--mode pallas8_nodes``
             and ``--mode brute``, each equal to ``TorchRenderer`` of the same
             mode bit for bit
+  readback  the traversals that read their loop test back to the host, whose
+            steps a renderer runs uncaptured: sphere 512x512, 1 spp, 5
+            bounces, RR after 3, through 'bvh' and 'packet', each frame
+            against K1's of the same options (atol 1e-4, rtol 1e-3, at most
+            0.5% of pixels outside, as ``golden`` counts them), no step
+            captured, no kernel launched, frame ms; a loss-and-gradient step
+            of ``DifferentiableRenderer(mode="bvh")`` on cornell 64x64, 2 spp
+            (finite gradients, the loss within 1e-3 of K1's step); a pool of
+            two 'bvh' workers on the card equal to one 'bvh' renderer; the
+            command line's ``render frame scenes/cornell.obj --width 64
+            --height 64 --mode bvh`` in a subprocess on the default device
+            and ``--mode packet`` through ``cli.main``, each PNG equal to the
+            in-process render
+  oracle    the NumPy oracle ``CpuRenderer`` on the host against the card's
+            K1 frame (mode 'auto') of cornell and sphere at 64x64, 2 spp, 3
+            bounces, with the tolerance of ``readback``; the oracle's host
+            seconds
 
 The last three lines of the output are: the card's name and power limit as
 nvidia-smi prints them, one JSON object ``{"kernels": [...]}`` with the twelve
@@ -997,6 +1014,28 @@ def phase_grid(ctx):
     emit("grid", cells=cells, auto=auto)
 
 
+# a frame against another's: the tolerance of tests/test_parity.py::_compare,
+# and the share of pixels that may lie outside it
+FRAME_ATOL, FRAME_RTOL, MAX_OFF_SHARE = 1e-4, 1e-3, 0.005
+
+
+def pixels_outside(got, want, label: str) -> dict:
+    """Pixels of two f32 accumulators outside FRAME_ATOL / FRAME_RTOL. A lane
+    whose RR or branch decision flips on an ulp changes its pixel by far
+    more than any tolerance, so such pixels are counted, and the check
+    fails past MAX_OFF_SHARE of the frame, or on a non-finite or
+    wrong-shaped frame."""
+    got, want = np.asarray(got), np.asarray(want)
+    if got.shape != want.shape or not np.isfinite(got).all():
+        fail(f"{label}: wrong shape or non-finite accumulator")
+    bad = (~np.isclose(got, want, atol=FRAME_ATOL, rtol=FRAME_RTOL)).any(axis=-1)
+    allowed = int(MAX_OFF_SHARE * bad.size)
+    if int(bad.sum()) > allowed:
+        fail(f"{label}: {int(bad.sum())} pixels outside tolerance (> {allowed})")
+    return {"pixels": int(bad.size), "outside_tolerance": int(bad.sum()), "allowed": allowed,
+            "max_abs_diff": float(np.abs(got - want).max())}
+
+
 def phase_golden(scenes):
     """32x32 renders through K1, with each of its triangle tests, against the
     accumulators the JAX package rendered: the untextured sphere and the
@@ -1017,24 +1056,9 @@ def phase_golden(scenes):
         for tri_test in ("mt", "hh"):
             renderer = TorchRenderer(scenes[name], mode="kernel", tri_test=tri_test)
             got = renderer.render_accum(opt).cpu().numpy()
-            if got.shape != ref.shape or not np.isfinite(got).all():
-                fail(f"golden/{name}/{tri_test}: wrong shape or non-finite accumulator")
-            # a lane whose RR / branch decision flips on an ulp changes its
-            # pixel by far more than any tolerance: such pixels are counted,
-            # at most 0.5%
-            bad = (~np.isclose(got, ref, atol=1e-4, rtol=1e-3)).any(axis=-1)
-            allowed = int(0.005 * bad.size)
-            rows.append({
-                "scene": name, "tri_test": tri_test, "pixels": int(bad.size),
-                "outside_tolerance": int(bad.sum()), "allowed": allowed,
-                "max_abs_diff": float(np.abs(got - ref).max()),
-            })
-            if int(bad.sum()) > allowed:
-                fail(
-                    f"golden/{name}/{tri_test}: {int(bad.sum())} pixels outside "
-                    f"tolerance (> {allowed})"
-                )
-    emit("golden", renders=rows, atol=1e-4, rtol=1e-3)
+            rows.append({"scene": name, "tri_test": tri_test,
+                         **pixels_outside(got, ref, f"golden/{name}/{tri_test}")})
+    emit("golden", renders=rows, atol=FRAME_ATOL, rtol=FRAME_RTOL)
 
 
 def phase_flagship(sphere):
@@ -2309,6 +2333,139 @@ def phase_cli(scenes, smi: str):
          progressive_k1=k1_launches(prog_counts, "cli progressive"), modes=modes)
 
 
+# the traversals that read back to the host (phase readback): the frame, the
+# loss step and the command line's frames, and the oracle's (phase oracle)
+READBACK_MODES = ("bvh", "packet")
+READBACK_LOSS_FRAME, READBACK_CLI_FRAME = 64, 64
+ORACLE_FRAME, ORACLE_SPP, ORACLE_BOUNCES = 64, 2, 3
+LOSS_RTOL = 1e-3
+
+
+def phase_readback(scenes, smi: str):
+    """The traversals 'bvh' and 'packet', whose loops read their test back to
+    the host, on the card: a renderer runs their steps uncaptured, op by op,
+    and launches no kernel.
+
+    * Sphere at full width (512x512, 1 spp, 5 bounces, RR after 3), the
+      sequential loop, through ``TorchRenderer(mode=m)`` on the card: each
+      frame against K1's frame of the same options (``pixels_outside``), no
+      step captured, no kernel launched; frame ms of the second frame.
+    * ``DifferentiableRenderer(mode="bvh")``: one loss-and-gradient step on
+      cornell 64x64, 2 spp, zero target: finite gradients, the loss within
+      LOSS_RTOL of K1's step.
+    * A pool of two workers on the card with mode 'bvh' (cornell 64x64, 2
+      spp): equal to the single 'bvh' renderer bit for bit.
+    * ``python -m polaris_tpu_torch.cli render frame scenes/cornell.obj
+      --width 64 --height 64 --mode bvh`` on the default device, in a
+      subprocess, and ``--mode packet`` through ``cli.main``: exit 0, each
+      PNG equal to the in-process render of its mode."""
+    import contextlib
+    import io
+
+    from polaris_tpu_torch import cli
+    from polaris_tpu_torch.parallel.workers import make_device_pool
+    from polaris_tpu_torch.render.grad import DifferentiableRenderer
+    from polaris_tpu_torch.render.integrator import TorchRenderer
+    from polaris_tpu_torch.render.options import RenderOptions
+
+    os.makedirs(SMOKE_DIR, exist_ok=True)
+    opt = RenderOptions(width=FRAME, height=FRAME, spp=1, num_bounces=BOUNCES,
+                        min_bounces_for_rr=RR_AFTER)
+    k1 = TorchRenderer(scenes["sphere"], mode="auto")
+    want = k1.render_accum(opt)
+    _, k1_ms, k1_counts = timed_runs(lambda: k1.render_accum(opt), 2)
+    k1_launches(k1_counts, "readback K1 frame")
+    frames = {"K1": {"frame_ms": k1_ms[-1], "all_ms": k1_ms}}
+    for mode in READBACK_MODES:
+        r = TorchRenderer(scenes["sphere"], mode=mode)
+        if not r.reads_back:
+            fail(f"readback: mode {mode!r} does not declare that it reads back")
+        got, ms, counts = timed_runs(lambda: r.render_accum(opt), 2)
+        if counts:
+            fail(f"readback: mode {mode!r} launched {counts}")
+        if any(s.graph is not None for p in r._programs.values() for s in p.steps):
+            fail(f"readback: mode {mode!r} captured a step")
+        frames[mode] = dict(pixels_outside(got.cpu(), want.cpu(), f"readback: {mode} frame"),
+                            frame_ms=ms[-1], all_ms=ms)
+
+    small = RenderOptions(width=READBACK_LOSS_FRAME, height=READBACK_LOSS_FRAME, spp=2,
+                          num_bounces=BOUNCES, min_bounces_for_rr=RR_AFTER)
+    loss = {}
+    for mode in ("auto", "bvh"):
+        d = DifferentiableRenderer(scenes["cornell"], mode=mode)
+        target = torch.zeros((small.height, small.width, 3), device=d.device)
+        (value, grads, cam), ms, counts = timed_runs(lambda: d.loss_and_grad(small, target), 1)
+        if not all(torch.isfinite(g).all() for g in list(grads.values()) + list(cam.values())):
+            fail(f"readback: the {mode} loss step's gradients are not finite")
+        if mode == "bvh" and counts:
+            fail(f"readback: the bvh loss step launched {counts}")
+        loss[mode] = {"loss": value, "step_ms": ms[0]}
+    rel = abs(loss["bvh"]["loss"] - loss["auto"]["loss"]) / abs(loss["auto"]["loss"])
+    if not rel <= LOSS_RTOL:
+        fail(f"readback: the bvh loss is {rel:.3g} off K1's (> {LOSS_RTOL})")
+
+    single = TorchRenderer(scenes["cornell"], mode="bvh")
+    alone = single.render_accum(small)
+    pool = make_device_pool(scenes["cornell"], mode="bvh", devices=[single.device] * 2)
+    got, pool_ms, _ = timed_runs(lambda: pool.render_accum(small), 1)
+    if not torch.equal(got.to(single.device), alone):
+        fail("readback: the bvh pool's frame differs from the single bvh renderer's")
+
+    cornell_obj = os.path.join(HERE, "scenes", "cornell.obj")
+    cli_opt = RenderOptions(width=READBACK_CLI_FRAME, height=READBACK_CLI_FRAME)
+    out = os.path.join(SMOKE_DIR, "readback_bvh.png")
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "polaris_tpu_torch.cli", "render", "frame", cornell_obj,
+         "--width", str(READBACK_CLI_FRAME), "--height", str(READBACK_CLI_FRAME),
+         "--mode", "bvh", "--out", out],
+        capture_output=True, text=True, cwd=HERE, timeout=600)
+    cli_s = {"bvh": time.perf_counter() - t0}
+    if run.returncode != 0:
+        fail(f"readback: render frame --mode bvh exited {run.returncode}: {run.stderr[-2000:]}")
+    out_packet = os.path.join(SMOKE_DIR, "readback_packet.png")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.main(["render", "frame", cornell_obj, "--width", str(READBACK_CLI_FRAME),
+                       "--height", str(READBACK_CLI_FRAME), "--mode", "packet",
+                       "--out", out_packet])
+    cli_s["packet"] = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"readback: render frame --mode packet exited {rc}")
+    for mode, png in (("bvh", out), ("packet", out_packet)):
+        want_png = cli.quantize(TorchRenderer(scenes["cornell"], mode=mode).render(cli_opt))
+        with open(png, "rb") as f:
+            if not np.array_equal(decode_png(f.read()), want_png):
+                fail(f"readback: the --mode {mode} PNG differs from the in-process render")
+    emit("readback", card=smi, frame=f"{FRAME}x{FRAME}x1", frames=frames,
+         loss_step={"frame": f"{READBACK_LOSS_FRAME}x{READBACK_LOSS_FRAME}x2", **loss,
+                    "relative_diff": rel},
+         pool_bvh_ms=pool_ms[0], cli_seconds=cli_s)
+
+
+def phase_oracle(scenes, smi: str):
+    """The NumPy oracle (``CpuRenderer``, on the host) against the card's K1
+    frame (``mode="auto"``) of cornell and sphere at ORACLE_FRAME^2,
+    ORACLE_SPP spp, ORACLE_BOUNCES bounces (``pixels_outside``); the
+    oracle's host seconds."""
+    from polaris_tpu_torch import CpuRenderer
+    from polaris_tpu_torch.render.integrator import TorchRenderer
+    from polaris_tpu_torch.render.options import RenderOptions
+
+    opt = RenderOptions(width=ORACLE_FRAME, height=ORACLE_FRAME, spp=ORACLE_SPP,
+                        num_bounces=ORACLE_BOUNCES)
+    rows = {}
+    for name in ("cornell", "sphere"):
+        card = TorchRenderer(scenes[name], mode="auto").render_accum(opt).cpu()
+        t0 = time.perf_counter()
+        golden = CpuRenderer(scenes[name]).render_accum(opt)
+        seconds = time.perf_counter() - t0
+        rows[name] = dict(pixels_outside(card, golden, f"oracle: {name}"),
+                          oracle_host_s=seconds)
+    emit("oracle", card=smi, frame=f"{ORACLE_FRAME}x{ORACLE_FRAME}x{ORACLE_SPP}",
+         bounces=ORACLE_BOUNCES, renders=rows)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2400,6 +2557,8 @@ def main() -> int:
         phase_parallel(scenes, smi)
         phase_modes(scenes, smi)
         phase_cli(scenes, smi)
+        phase_readback(scenes, smi)
+        phase_oracle(scenes, smi)
     for e in entries.values():
         e["launches"] = launches[e["kernel"]][
             FAMILIES[e["kernel"]]["keys"][1 if e["any_hit"] else 0]

@@ -1,13 +1,15 @@
 """polaris_tpu_torch: the PyTorch/CUDA port of the polaris path tracer.
 
 Same sub-package layout as the JAX package it is held against (``asset/``,
-``ops/``, ``render/``, ``native/``, ``utils/``); the hot kernel is
-hand-written CUDA under ``csrc/``. Imports ``torch`` only.
+``ops/``, ``render/``, ``parallel/``, ``cpu_ref/``, ``native/``,
+``utils/``); the traversal kernels are hand-written CUDA under ``csrc/``.
+Imports ``torch`` and NumPy only.
 
     from polaris_tpu_torch import (
         read_scene, compile_scene, SceneData,   # asset pipeline
         RenderOptions, TorchRenderer,           # rendering
         TpuRenderer,                            # the JAX package's name of it
+        CpuRenderer,                            # the NumPy oracle
         upload_scene,                           # host -> device scene dict
         DifferentiableRenderer, Trainer,        # inverse rendering
         TrainConfig, denoise_accum,
@@ -16,9 +18,18 @@ hand-written CUDA under ``csrc/``. Imports ``torch`` only.
         DistributedRenderer, make_mesh,         # tile x sample mesh
     )
 
-Every public name of the JAX package is here but ``CpuRenderer``, its NumPy
-oracle (``cpu_ref/``), which waits for a slice of its own. The command line
-is ``polaris_tpu_torch/cli.py`` (``python -m polaris_tpu_torch.cli``).
+Every public name of the JAX package is here. ``CpuRenderer`` is the JAX
+package's NumPy oracle, kept a NumPy program on the host (``cpu_ref/``):
+brute-force Möller-Trumbore over each instance's triangles, independent of
+every BVH traversal, and shading through copies of the xp-generic formula
+modules (``cpu_ref/xp/``) run with ``xp=np``; it imports no torch. It gives
+the JAX oracle's bits on the same ``SceneData``.
+
+``TorchRenderer`` replays each step of its loops from a CUDA graph on a
+card. The plain traversals 'bvh' and 'packet' read their loop test back to
+the host, so with them the same steps run uncaptured, op by op, on the
+card. The command line is ``polaris_tpu_torch/cli.py`` (``python -m
+polaris_tpu_torch.cli``).
 """
 
 __version__ = "0.1.0"
@@ -50,6 +61,10 @@ def __getattr__(name):
         from .render.integrator import TorchRenderer
 
         return TorchRenderer
+    if name == "CpuRenderer":
+        from .cpu_ref.renderer import CpuRenderer
+
+        return CpuRenderer
     if name == "DifferentiableRenderer":
         from .render.grad import DifferentiableRenderer
 

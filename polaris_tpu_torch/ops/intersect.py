@@ -624,31 +624,15 @@ def traverse_binary(
 # ----------------------------------------------------------------- brute mode
 
 
-def collect_blas_triangles(scene, root: int) -> np.ndarray:
-    """Walk a BLAS subtree on the host and return its triangle indices,
-    sorted: inner nodes have ldata > 0, bottom leaves store (-first_tri,
-    count). A copy of the JAX package's
-    ``cpu_ref/renderer.py::_collect_blas_triangles``."""
-    tris = []
-    stack = [root]
-    while stack:
-        i = stack.pop()
-        l = int(scene.bvh_ldata[i])
-        r = int(scene.bvh_rdata[i])
-        if l > 0:
-            stack.extend([l, r])
-        else:
-            first, count = -l, r
-            tris.extend(range(first, first + count))
-    return np.asarray(sorted(tris), np.int64)
-
-
 def instance_tri_ranges(scene) -> tuple:
     """``(first_tri, num_tris)`` of each instance's BLAS, which must be one
-    contiguous run of triangles."""
+    contiguous run of triangles. The BLAS walk is the NumPy oracle's, as in
+    the JAX package's ``brute`` mode."""
+    from ..cpu_ref.renderer import _collect_blas_triangles
+
     ranges = []
     for root in scene.inst_bvh_root:
-        tris = collect_blas_triangles(scene, int(root))
+        tris = _collect_blas_triangles(scene, int(root))
         first, count = int(tris.min()), int(tris.size)
         if tris.max() - first + 1 != count:
             raise ValueError("BLAS triangle range is not contiguous")
@@ -763,7 +747,8 @@ def make_intersectors(S, mode: str = "auto", tri_test: Optional[str] = None):
                       bounce rays (``closest.closest_bounce``) and shadow rays
       'bvh'           the plain PyTorch binary traversal above with the
                       quotient-form triangle test, as the JAX package's
-                      'bvh' (any device)
+                      'bvh' (any device). It reads its loop test back to
+                      the host
       'auto'          on a CUDA device 'kernel' at every size (K1 leads
                       K2 on every scene the grid times); on the CPU the
                       binary kernel's wrappers, which run its plain version
@@ -771,8 +756,7 @@ def make_intersectors(S, mode: str = "auto", tri_test: Optional[str] = None):
       'packet'        the JAX package's XLA twin of its binary kernel in
                       plain PyTorch (``intersect_packet``): tiles of 64
                       rays sharing one stack. It reads its
-                      loop test back to the host, so a renderer on a card
-                      refuses it as it refuses 'bvh'
+                      loop test back to the host, as 'bvh' does
       'brute'         no BVH: every triangle of every instance, quotient
                       form, rays in chunks of 8192
                       (``intersect_brute``; fixed shapes, any device, and
@@ -784,7 +768,10 @@ def make_intersectors(S, mode: str = "auto", tri_test: Optional[str] = None):
     'kernel' insists on a card and raises without one.
 
     Both callables take ``(S, o, d, maxt, active)``; ``closest_hit`` returns
-    a ``Hit``, ``any_hit`` the occlusion mask.
+    a ``Hit``, ``any_hit`` the occlusion mask. The callables of a traversal
+    that reads its loop test back to the host ('bvh', 'packet') carry
+    ``reads_back = True``: a CUDA graph cannot capture them, so a renderer
+    runs their steps uncaptured (``render/graph.py::Step``).
     """
     device = S["bvh_ldata"].device
     if mode not in MODES:
@@ -821,6 +808,7 @@ def make_intersectors(S, mode: str = "auto", tri_test: Optional[str] = None):
         def any_hit(S, o, d, maxt, active):
             return intersect_bvh(S, o, d, maxt, active, any_hit=True, leaf="quot").mask
 
+        closest.reads_back = any_hit.reads_back = True
         return closest, any_hit
 
     if mode == "packet":
@@ -832,6 +820,7 @@ def make_intersectors(S, mode: str = "auto", tri_test: Optional[str] = None):
         def any_hit(S, o, d, maxt, active):
             return intersect_packet(S, o, d, maxt, active, any_hit=True).mask
 
+        closest.reads_back = any_hit.reads_back = True
         return closest, any_hit
 
     if mode == "brute":

@@ -72,29 +72,14 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def collect_blas_triangles(scene, root: int) -> np.ndarray:
-    """Walk a BLAS subtree host-side and return its sorted triangle indices
-    (inner nodes have ``ldata > 0``; bottom leaves store ``(-first, count)``).
-    The port's own copy of ``polaris_tpu/cpu_ref/renderer.py::
-    _collect_blas_triangles``."""
-    tris = []
-    stack = [root]
-    while stack:
-        i = stack.pop()
-        l = int(scene.bvh_ldata[i])
-        r = int(scene.bvh_rdata[i])
-        if l > 0:
-            stack.extend([l, r])
-        else:
-            tris.extend(range(-l, -l + r))
-    return np.asarray(sorted(tris), np.int64)
-
-
 def pack_scene_dense(scene) -> Dict[str, np.ndarray]:
     """Host-side packing: ``pk_ranges`` (I*2,) i32 ``(first, count)`` per
     instance, ``pk_tris`` (T*9,) f32 rows ``[v0, e1, e2]``, ``pk_w2o``
     (I*12,) f32 rows of the 3x4 world->object matrices. Raises for a scene
-    over ``DENSE_MAX_TRIS`` triangles."""
+    over ``DENSE_MAX_TRIS`` triangles. Each instance's range comes from the
+    NumPy oracle's BLAS walk, as in the JAX packer."""
+    from ..cpu_ref.renderer import _collect_blas_triangles
+
     num_tris = int(scene.tri_v0.shape[0])
     if num_tris > DENSE_MAX_TRIS:
         raise ValueError(
@@ -109,7 +94,7 @@ def pack_scene_dense(scene) -> Dict[str, np.ndarray]:
     w2o = scene.inst_w2o[:, :3, :].astype(np.float32).reshape(-1)
     ranges = []
     for root in scene.inst_bvh_root:
-        t = collect_blas_triangles(scene, int(root))
+        t = _collect_blas_triangles(scene, int(root))
         first, count = int(t.min()), int(t.size)
         if t.max() - first + 1 != count:
             raise ValueError("an instance's triangles are not one contiguous range")

@@ -18,6 +18,12 @@ outside the graph's memory pool. Then the step is captured, and every later
 call replays the graph. A capture that fails raises; nothing falls back to
 eager launches.
 
+A step whose traversal reads back to the host (the plain traversals
+'bvh' and 'packet', ``ops/intersect.py::make_intersectors``) cannot be
+captured. It is made with ``capture=False`` and then runs op by op on the
+card on every call, as on the CPU: on the caller's current stream (a
+worker's own, say), its launches counted as they run.
+
 The traversal wrappers count their launches in Python, which a capture
 runs once. So the capture's counts are taken back out of the modules'
 ``LAUNCHES`` tables and kept as the graph's launches per entry point, and
@@ -63,7 +69,8 @@ def gc_paused():
 
 
 class Step:
-    """``fn`` run directly on the CPU, replayed from a CUDA graph on a card.
+    """``fn`` run directly on the CPU, replayed from a CUDA graph on a card,
+    or run directly there too when ``capture`` is False.
 
     ``stream`` and ``pool``: the capture stream and the graph memory pool,
     shared by the steps of one renderer. Its graphs are replayed one after
@@ -73,9 +80,14 @@ class Step:
     tensors allocated outside the pool).
     """
 
-    def __init__(self, fn: Callable[[], None], device: torch.device, stream=None, pool=None):
+    # False: the step runs on a card uncaptured, op by op, on every call
+    capture = True
+
+    def __init__(self, fn: Callable[[], None], device: torch.device, stream=None, pool=None,
+                 capture: bool = True):
         self.fn = fn
         self.device = device
+        self.capture = capture
         self.stream = stream
         self.pool = pool
         self.graph = None
@@ -84,7 +96,7 @@ class Step:
         self.capture_seconds = 0.0
 
     def __call__(self) -> None:
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or not self.capture:
             self.fn()
         elif self.graph is None:
             self._capture()

@@ -15,7 +15,8 @@ The loops exist twice over the same bodies. The eager functions
 over ``regen_start`` / ``regen_trip``, ``render_blocked_eager``) launch
 every op on its own; the CPU, autograd and the reference checks run them.
 ``TorchRenderer`` runs one step of a loop as a function of static device
-tensors, replayed from a CUDA graph on a card (``render/graph.py``): the
+tensors, replayed from a CUDA graph on a card (``render/graph.py``; run
+uncaptured there with a traversal that reads back to the host): the
 counterpart of the JAX package's compiled programs (``_get_render_fn``,
 ``_get_chunk_carry_fn``, ``_get_finalize_fn``, ``_get_adaptive_fn``), and
 bit-equal to the eager loops. The forward path runs under
@@ -725,7 +726,11 @@ class TorchRenderer:
     device accumulator in blocked lane order, and one finalize restores
     pixel order, tonemaps and quantizes. Graphs are kept per (width, height,
     chunk spp, bounces, RR threshold, tile-coherent RR, loop), and are
-    captured by a frame's first launch of that shape.
+    captured by a frame's first launch of that shape. A traversal that
+    reads its loop test back to the host ('bvh', 'packet': the intersectors
+    carry ``reads_back``) cannot be captured; with it the same steps run
+    uncaptured, op by op, on the caller's stream, on a card as on the CPU,
+    and every other mode keeps its graphs.
 
     A captured graph reads the scene tensors ``self.S`` (and the packed
     buffers of the traversal kernels) by address: it stays valid only while
@@ -747,12 +752,6 @@ class TorchRenderer:
         tri_test: Optional[str] = None,
     ):
         self.device = resolve_device(device)
-        if mode in ("bvh", "packet") and self.device.type == "cuda":
-            raise ValueError(
-                f"mode {mode!r} is a plain PyTorch traversal, which reads its "
-                "loop condition back to the host and cannot be captured into "
-                "a CUDA graph; on a card use a kernel mode ('auto')"
-            )
         self.scene = as_scene_data(scene)
         self.compact = compact
         self.sort_rays = sort_rays
@@ -760,6 +759,9 @@ class TorchRenderer:
         self.regen = regen and not (compact or sort_rays or batch_samples)
         self.S = upload_scene(self.scene, self.device)
         self.closest, self.any_hit = make_intersectors(self.S, mode, tri_test)
+        # a traversal that reads back to the host cannot be captured: its
+        # steps run uncaptured, op by op, on a card too
+        self.reads_back = getattr(self.closest, "reads_back", False)
         self.closest_bounce = getattr(self.closest, "closest_bounce", None)
         if self.regen and self.closest_bounce is not None:
             _log.warning(
@@ -787,7 +789,9 @@ class TorchRenderer:
         self.last_device = str(self.device)  # the progressive viewer's block rows name it
         # the last frame's loop: trips that had a live lane (the eager
         # loop's count), trips run (overshoot included: one closest-hit
-        # launch each) and reads of a device value by the host
+        # launch each) and the loop's own reads of a device value by the
+        # host (a traversal that reads back, 'bvh' or 'packet', reads more
+        # inside every call; those are not counted)
         self.last_trips = 0
         self.last_trips_run = 0
         self.last_host_syncs = 0
@@ -830,8 +834,8 @@ class TorchRenderer:
 
     def step(self, fn) -> Step:
         """A ``Step`` of ``fn`` on this renderer's capture stream and graph
-        pool."""
-        return Step(fn, self.device, self._stream, self._pool)
+        pool; uncaptured when the traversal reads back to the host."""
+        return Step(fn, self.device, self._stream, self._pool, capture=not self.reads_back)
 
     def _program(self, opt: RenderOptions, chunk: int, loop: str, band_h: int = 0) -> _Program:
         """``loop``'s program for frames of ``opt``'s shape, ``chunk``

@@ -20,11 +20,13 @@ JAX package.
   far more; such pixels are counted, at most 0.5% of the frame, as in
   ``tests/test_torch_render.py``.
 * ``render/graph.py::Step`` counts the launches its replays make, with
-  CUDA's graph calls stood in for by fakes.
+  CUDA's graph calls stood in for by fakes; with the same fakes, a renderer
+  on a card whose traversal reads back to the host ('bvh') runs its steps
+  uncaptured, and a kernel mode captures them.
 """
 
 import os
-from dataclasses import fields
+from dataclasses import fields, replace
 
 import numpy as np
 import pytest
@@ -209,14 +211,84 @@ def test_port_matches_jax_bvh(scenes, jax_accum, name, regen):
     _assert_close(got, jax_accum(name, regen, "render_accum"), f"{name}/{regen}", atol)
 
 
-def test_bvh_mode_refuses_a_card(scenes, monkeypatch):
-    """The plain traversal reads its loop condition back to the host, so it
-    cannot be captured: on a card the renderer refuses it up front."""
-    import polaris_tpu_torch.render.integrator as integrator
+def on_a_faked_card(monkeypatch, scene, mode, cls=None, **kw):
+    """``cls(scene, mode=mode)`` (default ``TorchRenderer``) built as on a card, with CUDA's
+    calls stood in for: the device resolves to ``cuda:0`` (the scene is
+    uploaded to the CPU all the same), and every ``Step`` the renderer then
+    makes believes it runs on the card. ``torch.cuda.graph`` and
+    ``torch.cuda.stream`` record that they were entered and capture
+    nothing. Returns (renderer, events); the renderer's own tensors stay on
+    the CPU, so its frames run."""
+    import contextlib
 
-    monkeypatch.setattr(integrator, "resolve_device", lambda d: torch.device("cuda", 0))
-    with pytest.raises(ValueError, match="cannot be captured"):
-        _renderer(scenes["sphere"], False)
+    import polaris_tpu_torch.render.integrator as integrator
+    from polaris_tpu_torch.render import graph
+
+    events = []
+    card = torch.device("cuda", 0)
+
+    class FakeStream:
+        def wait_stream(self, other):
+            pass
+
+    class FakeGraph:
+        def replay(self):
+            events.append("replay")
+
+    @contextlib.contextmanager
+    def capturing(g, pool=None, stream=None):
+        events.append("capture")
+        yield
+
+    @contextlib.contextmanager
+    def on_stream(s):
+        events.append("stream")
+        yield
+
+    upload = integrator.upload_scene
+    monkeypatch.setattr(integrator, "resolve_device", lambda d: card)
+    monkeypatch.setattr(integrator, "upload_scene", lambda sc, d: upload(sc, "cpu"))
+    monkeypatch.setattr(graph.torch.cuda, "Stream", lambda device=None: FakeStream())
+    monkeypatch.setattr(graph.torch.cuda, "graph_pool_handle", lambda: None)
+    monkeypatch.setattr(graph.torch.cuda, "CUDAGraph", FakeGraph)
+    monkeypatch.setattr(graph.torch.cuda, "graph", capturing)
+    monkeypatch.setattr(graph.torch.cuda, "stream", on_stream)
+    monkeypatch.setattr(graph.torch.cuda, "current_stream", lambda device=None: FakeStream())
+    r = (cls or integrator.TorchRenderer)(
+        {f.name: getattr(scene, f.name) for f in fields(scene)}, mode=mode, **kw
+    )
+    assert r.device == card
+    r.device = torch.device("cpu")  # where its tensors are
+    step = integrator.Step
+    monkeypatch.setattr(
+        integrator, "Step", lambda fn, device, *a, **k: step(fn, card, *a, **k)
+    )
+    return r, events
+
+
+def test_bvh_mode_refuses_a_card(scenes, monkeypatch):
+    """The fault this test once pinned, repaired: a renderer on a card
+    refused 'bvh', whose traversal reads its loop test back to the host and
+    cannot be captured into a CUDA graph. Now it builds, and its steps run
+    uncaptured, op by op, on the caller's stream: a frame of either loop
+    enters no ``torch.cuda.graph`` and switches no stream, and equals the
+    CPU renderer's bit for bit. A kernel mode on the same stand-ins still
+    captures its steps."""
+    opt = RenderOptions(width=16, height=16, spp=2, num_bounces=2, min_bounces_for_rr=2)
+    for regen in LOOPS:
+        want = _renderer(scenes["sphere"], regen).render_accum(opt)
+        r, events = on_a_faked_card(monkeypatch, scenes["sphere"], "bvh", regen=regen)
+        assert r.reads_back and r.regen == regen
+        got = r.render_accum(opt)
+        assert events == [], events
+        assert all(not s.capture and s.graph is None
+                   for p in r._programs.values() for s in p.steps)
+        assert torch.equal(got, want)
+        monkeypatch.undo()
+    r, events = on_a_faked_card(monkeypatch, scenes["sphere"], "auto")
+    assert not r.reads_back
+    r.render_accum(replace(opt, spp=1))
+    assert events[:2] == ["stream", "capture"], events
 
 
 def test_step_counts_the_launches_its_replays_make(monkeypatch):

@@ -11,11 +11,20 @@
    naming a substitute, build intersectors whose hits equal ``bvh``'s.
 3. Every file the port copies verbatim from the JAX package is byte for
    byte the original: ``asset/**``, ``native/__init__.py``, the native
-   sources, ``types.py``, ``utils/log.py``, ``render/options.py``.
+   sources, ``types.py``, ``utils/log.py``, ``render/options.py``, and
+   the NumPy oracle's plain copies: ``cpu_ref/__init__.py``,
+   ``cpu_ref/shading_ref.py`` and the formula modules under
+   ``cpu_ref/xp/``, which mirror the JAX tree (``cpu_ref/xp/ops/vec.py``
+   is ``ops/vec.py``). ``tests/test_torch_cpu_ref.py`` holds the two
+   copies that differ (``rng.py``, ``renderer.py``).
 4. ``mode="bvh"`` renders a scene whose BVH is one TLAS leaf over one BLAS
    leaf: the plain binary traversal fetched a leaf's child boxes at its
    data words, and a BLAS leaf's triangle count (6) passed the last of the
    2 nodes. The fetch clamps into the node array, as XLA's gather does.
+5. A renderer on a card refused 'packet' (and 'bvh'), whose loops read back
+   to the host. Their steps now run uncaptured on the card.
+6. The port kept two copies of the oracle's BLAS walk; 'brute' and K5's
+   packer now read the oracle's own, with the same ranges as before.
 """
 
 import os
@@ -57,10 +66,23 @@ def _asset_files(root):
     return sorted(out)
 
 
+# the NumPy oracle's copies of the JAX package's formula modules, in the
+# JAX package's own layout under this directory of the port
+XP = "cpu_ref/xp/"
+
 VERBATIM = _asset_files(JAX_PKG) + [
     "native/__init__.py", "native/bvh_builder.cpp", "native/exr_piz.cpp",
     "types.py", "utils/log.py", "render/options.py",
-]
+    "cpu_ref/__init__.py", "cpu_ref/shading_ref.py",
+] + [XP + f for f in (
+    "ops/__init__.py", "ops/vec.py", "ops/bxdf.py", "ops/emissive.py", "ops/material.py",
+    "ops/texture.py", "render/__init__.py", "render/shade.py", "render/raygen.py",
+)]
+
+
+def original(path):
+    """The JAX package's file that the port's ``path`` copies."""
+    return path[len(XP):] if path.startswith(XP) else path
 
 
 @pytest.fixture(scope="module")
@@ -170,7 +192,8 @@ def test_xla_modes_raise_naming_the_substitute(cornell, mode):
 
 @pytest.mark.parametrize("path", VERBATIM)
 def test_verbatim_copy_is_the_original_byte_for_byte(path):
-    with open(os.path.join(JAX_PKG, path), "rb") as a, open(os.path.join(PORT_PKG, path), "rb") as b:
+    with open(os.path.join(JAX_PKG, original(path)), "rb") as a, \
+            open(os.path.join(PORT_PKG, path), "rb") as b:
         assert a.read() == b.read(), path
 
 
@@ -205,12 +228,37 @@ def test_bvh_mode_renders_a_single_leaf_mesh(textured_scene):
 
 
 def test_packet_mode_refuses_a_card(scenes_dir, monkeypatch):
-    """``packet`` reads its loop test back to the host, as ``bvh`` does, so a
-    renderer on a card refuses it with the same message, naming 'auto'."""
-    import polaris_tpu_torch.render.integrator as integrator
+    """The fault this test once pinned, repaired: a renderer on a card
+    refused 'packet', whose traversal reads its loop test back to the host,
+    as 'bvh' does. Now it builds, and its steps run uncaptured: with CUDA's
+    calls stood in for (``test_torch_compiled.on_a_faked_card``), a frame
+    and a loss-and-gradient step of ``DifferentiableRenderer`` enter no
+    ``torch.cuda.graph`` and switch no stream, and equal the CPU's bit for
+    bit. A kernel mode on the same stand-ins still captures."""
+    from test_torch_compiled import on_a_faked_card
 
-    monkeypatch.setattr(integrator, "resolve_device", lambda d: torch.device("cuda", 0))
-    with pytest.raises(ValueError, match=r"mode 'packet' is a plain PyTorch traversal.*'auto'"):
-        integrator.TorchRenderer(
-            compile_scene(read_scene(os.path.join(scenes_dir, "cornell.obj"))), mode="packet"
-        )
+    from polaris_tpu_torch.render.grad import DifferentiableRenderer
+    from polaris_tpu_torch.render.integrator import TorchRenderer
+    from polaris_tpu_torch.render.options import RenderOptions
+
+    scene = compile_scene(read_scene(os.path.join(scenes_dir, "cornell.obj")))
+    opt = RenderOptions(width=16, height=16, spp=1, num_bounces=2, min_bounces_for_rr=2)
+    target = torch.zeros((16, 16, 3))
+    want = TorchRenderer(scene, device="cpu", mode="packet", regen=True).render_accum(opt)
+    want_loss, want_grads, _ = DifferentiableRenderer(
+        scene, device="cpu", mode="packet").loss_and_grad(opt, target)
+
+    r, events = on_a_faked_card(monkeypatch, scene, "packet", regen=True)
+    assert r.reads_back
+    assert torch.equal(r.render_accum(opt), want)
+    d, events_d = on_a_faked_card(monkeypatch, scene, "packet", cls=DifferentiableRenderer)
+    loss, grads, _ = d.loss_and_grad(opt, target)
+    assert events == events_d == []
+    assert loss == want_loss
+    for k, g in grads.items():
+        assert torch.equal(g, want_grads[k]), k
+    monkeypatch.undo()
+    r, events = on_a_faked_card(monkeypatch, scene, "pallas8")
+    assert not r.reads_back
+    r.render_accum(opt)
+    assert events[:2] == ["stream", "capture"], events
