@@ -80,6 +80,19 @@ printing one JSON line:
             (closest-hit launches = trips run). Then sphere and mitsuba once
             more through the Havel-Herout test, with the u8 level difference
             to the default
+  shade     the shading kernel (ops/shade_cuda.py) against its plain
+            version: every result of the first 3 bounces of 256x256 frames
+            of the five scenes and ``coverage_scene`` (every material
+            operator, BxDF, light kind and texture storage), and of
+            1024x1024 frames of sphere and terrain819k (the frame cells'
+            lanes), with Python-int and per-lane counters, bit for bit;
+            whole frames of sphere, mitsuba and dispersive through both in
+            the sequential, regen, compact and batch_samples loops (equal
+            accumulators); a regen frame's graphs against the eager loops;
+            80 + 80 launches a 1024x1024x16 frame and none in a loss step;
+            ms against the byte bound and the plain version's at 1024x1024
+            on sphere, terrain819k and mitsuba, the timed results bit for
+            bit too; registers and spills (``-Xptxas -v``)
   adaptive  cornell 512x512, a cap of 64 spp, chunks of 16, tol 0.08,
             through the sequential loop's graphs: frame ms, mean spp, the
             share of blocks stopped, MSE of the tonemapped image against a
@@ -175,15 +188,16 @@ printing one JSON line:
 
 The last three lines of the output are: the card's name and power limit as
 nvidia-smi prints them, one JSON object ``{"kernels": [...]}`` with the twelve
-kernel entry points, and ``{"ok": true, "device": {...}}``. Any failure ends
-the run with a non-zero exit code and no result line; without a CUDA device
-nothing runs.
+traversal entry points and the shading kernel's two, and ``{"ok": true,
+"device": {...}}``. Any failure ends the run with a non-zero exit code and no
+result line; without a CUDA device nothing runs.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -2466,6 +2480,292 @@ def phase_oracle(scenes, smi: str):
          bounces=ORACLE_BOUNCES, renders=rows)
 
 
+# phase shade: the shading kernel (ops/shade_cuda.py) against its plain version
+SHADE_FRAME = 256  # the bounce checks' frames of the small scenes
+SHADE_BOUNCES = 3  # bounces held field by field
+SHADE_ULPS = 0  # the tolerance: every field a later stage reads, bit for bit
+SHADE_LOOP_SPP = 8
+SHADE_TIME_FRAME = 1024  # the frame cells' lanes
+SHADE_SCENES = ("sphere", "cornell", "instanced", "mitsuba", "dispersive", "coverage")
+# the frame cells' scenes, checked at SHADE_TIME_FRAME^2 as well
+SHADE_CELL_SCENES = ("sphere", "terrain819k")
+SHADE_TIME_SCENES = ("sphere", "terrain819k", "mitsuba")
+# bytes a lane reads and writes in one launch (csrc/shade_args.cuh's lane
+# fields, int64 pixel), a hit's triangle rows (normals, material; the uvs
+# where a surface samples a texture), and nee_add's lane
+SHADE_LANE_BYTES = 94 + 94
+SHADE_TRI_BYTES = 36 + 4
+SHADE_UV_BYTES = 24
+NEE_LANE_BYTES = 12 + 1 + 1 + 12 + 12
+
+
+def ulp_gap(a, b):
+    """|a - b| in units in the last place, lane by lane (float32)."""
+    def ordered(x):
+        i = x.contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    return (ordered(a) - ordered(b)).abs()
+
+
+def shade_field_gaps(got: dict, want: dict, label: str) -> dict:
+    """Lanes whose field differs where a later stage reads it, and the
+    largest gap in ulps, for every result; fails above SHADE_ULPS."""
+    from polaris_tpu_torch.render.shade_check import MASKED_BY
+
+    gaps = {}
+    for k, g in got.items():
+        w = want[k]
+        if g.dtype == torch.float32:
+            gap = ulp_gap(g, w)
+        else:
+            gap = (g != w).to(torch.int64)
+        if gap.dim() > 1:
+            gap = gap.max(dim=-1).values
+        if k in MASKED_BY:
+            gap = torch.where(want[MASKED_BY[k]], gap, 0)
+        gaps[k] = {"lanes": int((gap > 0).sum()), "max_ulps": int(gap.max())}
+    off = {k: v for k, v in gaps.items() if v["lanes"]}
+    if any(v["max_ulps"] > SHADE_ULPS for v in off.values()):
+        fail(f"{label}: the kernel's results differ from the plain version's: {off}")
+    return off
+
+
+def shade_compare(r, hit, kw, label: str) -> dict:
+    """``shade_bounce`` and ``nee_add`` against their plain versions on one
+    bounce's inputs, every result (``shade_field_gaps``)."""
+    from polaris_tpu_torch.ops import shade_cuda
+    from polaris_tpu_torch.render.shade import nee_add_plain, shade_bounce_plain
+
+    rad_p, out_p = shade_bounce_plain(r.S, hit, **kw)
+    rad_k, out_k = shade_cuda.shade_bounce(r.S, hit, **kw)
+    got = dict(out_k, radiance=rad_k)
+    want = dict({k: out_p[k] for k in out_k}, radiance=rad_p)
+    row = {"hits": int(hit.mask.sum()), "shadow_rays": int(out_p["occl_mask"].sum()),
+           "differing": shade_field_gaps(got, want, label)}
+    if r.num_emissives > 0:
+        occluded = r.any_hit(r.S, out_p["occl_o"], out_p["occl_d"], out_p["occl_maxt"],
+                             out_p["occl_mask"])
+        args = (out_p["occl_mask"], occluded, out_p["occl_value"])
+        want_nee = nee_add_plain(rad_p, *args)
+        got_nee = shade_cuda.nee_add(rad_p.clone(), *args)
+        row["nee_add"] = shade_field_gaps({"radiance": got_nee}, {"radiance": want_nee},
+                                          label + "/nee_add")
+    return row
+
+
+def shade_check(name, r, width: int, per_lane: bool) -> list:
+    """The kernel against its plain version on the first SHADE_BOUNCES
+    bounces of a ``width``^2 frame (``shade_check.shade_bounces``)."""
+    from polaris_tpu_torch.render.shade_check import shade_bounces
+
+    rows = []
+    for b, hit, kw in shade_bounces(r, width, seed=7, per_lane=per_lane, bounces=SHADE_BOUNCES):
+        label = f"shade/{name}/{width}/{'per_lane' if per_lane else 'scalar'}/bounce {b}"
+        rows.append({"scene": name, "width": width, "per_lane": per_lane, "bounce": b,
+                     **shade_compare(r, hit, kw, label)})
+    return rows
+
+
+class plain_shading:
+    """Within it ``_trace_bounce`` shades through the plain version on the
+    card too (``shade_cuda.takes_kernel`` answers no)."""
+
+    def __enter__(self):
+        from polaris_tpu_torch.ops import shade_cuda
+
+        self.saved = shade_cuda.takes_kernel
+        shade_cuda.takes_kernel = lambda S, *tensors: False
+
+    def __exit__(self, *exc):
+        from polaris_tpu_torch.ops import shade_cuda
+
+        shade_cuda.takes_kernel = self.saved
+
+
+def shade_loops(scenes) -> list:
+    """Whole frames through the kernel against frames through the plain
+    version, in the sequential, regeneration, compact and batch_samples
+    loops (each a renderer of its own, from its CUDA graphs): equal
+    accumulators, and so no pixel apart."""
+    from polaris_tpu_torch.render.integrator import TorchRenderer
+    from polaris_tpu_torch.render.options import RenderOptions
+
+    opt = RenderOptions(width=SHADE_FRAME, height=SHADE_FRAME, spp=SHADE_LOOP_SPP,
+                        num_bounces=BOUNCES, min_bounces_for_rr=RR_AFTER, seed=11)
+    rows = []
+    for name in ("sphere", "mitsuba", "dispersive"):
+        for loop in ("sequential", "regen", "compact", "batch_samples"):
+            flags = {} if loop == "sequential" else {loop: True}
+            acc_k = TorchRenderer(scenes[name], **flags).render_accum(opt)
+            with plain_shading():
+                acc_p = TorchRenderer(scenes[name], **flags).render_accum(opt)
+            label = f"shade loops/{name}/{loop}"
+            img_k, img_p = (TorchRenderer.tonemap_u8(a, 1.0 / opt.spp, opt.exposure).cpu().numpy()
+                            for a in (acc_k, acc_p))
+            row = {"scene": name, "loop": loop, "accum_equal": bool(torch.equal(acc_k, acc_p)),
+                   "accum_max_abs_diff": float((acc_k - acc_p).abs().max()),
+                   **level_diff(img_k, img_p, label, 0.0)}
+            if not row["accum_equal"]:
+                fail(f"{label}: the kernel's accumulator differs from the plain version's: {row}")
+            rows.append(row)
+    return rows
+
+
+def shade_launch_counts(scenes) -> dict:
+    """``shade_bounce`` and ``nee_add`` launches of a frame cell's frame
+    (sphere 1024^2 x 16 spp, 5 bounces, the sequential loop's graphs): spp x
+    bounces each; and of a loss-and-gradient step: none (autograd records
+    it, so it shades through the plain version)."""
+    from polaris_tpu_torch.ops import shade_cuda
+    from polaris_tpu_torch.render.grad import DifferentiableRenderer
+    from polaris_tpu_torch.render.integrator import TorchRenderer
+    from polaris_tpu_torch.render.options import RenderOptions
+
+    opt = RenderOptions(width=SHADE_TIME_FRAME, height=SHADE_TIME_FRAME, spp=16,
+                        num_bounces=BOUNCES, min_bounces_for_rr=RR_AFTER)
+    r = TorchRenderer(scenes["sphere"])
+    r.render_u8(opt)  # captures
+    for k in shade_cuda.LAUNCHES:
+        shade_cuda.LAUNCHES[k] = 0
+    r.render_u8(opt)
+    frame = dict(shade_cuda.LAUNCHES)
+    want = opt.spp * opt.num_bounces
+    if frame != {"shade_bounce": want, "nee_add": want}:
+        fail(f"shade: a frame launched {frame}, expected {want} of each")
+    small = RenderOptions(width=64, height=64, spp=2, num_bounces=BOUNCES,
+                          min_bounces_for_rr=RR_AFTER)
+    dr = DifferentiableRenderer(scenes["sphere"])
+    target = np.zeros((64, 64, 3), np.float32)
+    dr.loss_and_grad(small, target)  # captures
+    for k in shade_cuda.LAUNCHES:
+        shade_cuda.LAUNCHES[k] = 0
+    dr.loss_and_grad(small, target)
+    step = dict(shade_cuda.LAUNCHES)
+    if any(step.values()):
+        fail(f"shade: a loss-and-gradient step launched {step}, expected none")
+    return {"frame": frame, "frame_expected": want, "loss_step": step}
+
+
+def shade_timing(scenes) -> list:
+    """The kernel's device ms on the first two bounces of a
+    SHADE_TIME_FRAME^2 frame of the frame cells' scenes and of mitsuba
+    (textured, every BxDF type but the conductors), against its byte bound
+    and the plain version's ms (each ``time_ms``: launches replayed from a
+    CUDA graph), with the results of the timed inputs held against the
+    plain version's (``shade_compare``); ``nee_add`` too."""
+    from polaris_tpu_torch.ops import shade_cuda
+    from polaris_tpu_torch.render.integrator import TorchRenderer
+    from polaris_tpu_torch.render.shade import nee_add_plain, shade_bounce_plain
+    from polaris_tpu_torch.render.shade_check import shade_bounces
+
+    rows = []
+    for name in SHADE_TIME_SCENES:
+        r = TorchRenderer(scenes[name])
+        uv = bool(shade_cuda.statics_bits(r.S) & shade_cuda.STATIC_UV)
+        for b, hit, kw in shade_bounces(r, SHADE_TIME_FRAME, seed=3, per_lane=False, bounces=2):
+            n = hit.mask.shape[0]
+            tris = int(torch.unique(hit.tri[hit.mask]).numel())
+            nbytes = n * SHADE_LANE_BYTES + tris * (SHADE_TRI_BYTES + SHADE_UV_BYTES * uv)
+            ms = time_ms(lambda: shade_cuda.shade_bounce(r.S, hit, **kw), 20)
+            plain_ms = time_ms(lambda: shade_bounce_plain(r.S, hit, **kw), 2)
+            checked = shade_compare(r, hit, kw, f"shade/timing/{name}/bounce {b}")
+            _, out = shade_cuda.shade_bounce(r.S, hit, **kw)
+            args = (out["occl_mask"], torch.zeros_like(out["occl_mask"]), out["occl_value"])
+            rad = kw["radiance"].clone()
+            nee_ms = time_ms(lambda: shade_cuda.nee_add(rad, *args), 20)
+            nee_plain_ms = time_ms(lambda: nee_add_plain(rad, *args), 20)
+            bound = nbytes / PEAK_BYTES_PER_S * 1e3
+            nee_bound = n * NEE_LANE_BYTES / PEAK_BYTES_PER_S * 1e3
+            rows.append({
+                "scene": name, "reads_uv": uv, "bounce": b, "lanes": n,
+                "distinct_triangles": tris, **checked,
+                "ms": ms, "bound_ms": bound, "share_of_bound": bound / ms,
+                "plain_ms": plain_ms, "speedup": plain_ms / ms,
+                "nee_add_ms": nee_ms, "nee_add_bound_ms": nee_bound,
+                "nee_add_share_of_bound": nee_bound / nee_ms, "nee_add_plain_ms": nee_plain_ms,
+            })
+    return rows
+
+
+def shade_ptxas() -> list:
+    """What the assembler reports for ``csrc/shade.cu`` built once more with
+    ``-Xptxas -v`` and the package's flags: registers, stack frame and
+    spills per entry point."""
+    from polaris_tpu_torch.ops import _build, _launch, shade_cuda
+
+    probe = os.path.join(_build.BUILD_DIR, "ptxas_probe_shade.so")
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    cmd = [_build._find_nvcc(), *_build.NVCC_FLAGS, *_launch.EXTRA_FLAGS, "-Xptxas", "-v",
+           "-o", probe, os.path.join(_build.CSRC_DIR, shade_cuda.SOURCE)]
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    if res.returncode != 0:
+        fail(f"shade: nvcc -Xptxas -v failed: {res.stderr}")
+    return [ln.strip() for ln in (res.stdout + res.stderr).splitlines()
+            if re.search(r"Compiling entry|Used \d+ registers|stack frame|spill", ln)]
+
+
+def phase_shade(scenes, smi: str) -> list:
+    """The shading kernel: registers and spills; every result of
+    ``shade_bounce`` and ``nee_add`` against the plain version on the first
+    SHADE_BOUNCES bounces of SHADE_FRAME^2 frames of the five benchmark
+    scenes and ``coverage_scene``, and of SHADE_TIME_FRAME^2 frames of the
+    frame cells' scenes (bit for bit, SHADE_ULPS), with Python-int counters
+    and with per-lane ones; whole frames of the kernel against the plain
+    version in four loops (equal accumulators); a frame's graphs against
+    the eager loops (``graph_against_eager``, bit for bit); the launches of
+    a frame and of a loss step; ms against the byte bound and the plain
+    version at SHADE_TIME_FRAME^2. Returns the kernels line's entries of
+    ``shade_bounce`` and ``nee_add``."""
+    from polaris_tpu_torch.ops import shade_cuda
+    from polaris_tpu_torch.render.integrator import TorchRenderer
+    from polaris_tpu_torch.render.options import RenderOptions
+
+    attrs = shade_cuda.attributes()
+    checks = []
+    for name in SHADE_SCENES:
+        r = TorchRenderer(scenes[name])
+        for per_lane in (False, True):
+            checks += shade_check(name, r, SHADE_FRAME, per_lane)
+    for name in SHADE_CELL_SCENES:
+        r = TorchRenderer(scenes[name])
+        for per_lane in (False, True):
+            checks += shade_check(name, r, SHADE_TIME_FRAME, per_lane)
+        del r
+        torch.cuda.empty_cache()
+    loops = shade_loops(scenes)
+    graph_row, _, _ = graph_against_eager(
+        TorchRenderer(scenes["mitsuba"], regen=True),
+        RenderOptions(width=SHADE_FRAME, height=SHADE_FRAME, spp=SHADE_LOOP_SPP,
+                      num_bounces=BOUNCES, min_bounces_for_rr=RR_AFTER),
+        "shade/graph_against_eager", 1, 1,
+    )
+    counts = shade_launch_counts(scenes)
+    timing = shade_timing(scenes)
+    ptxas = shade_ptxas()
+    emit("shade", card=smi, attributes=attrs, ptxas=ptxas, tolerance_ulps=SHADE_ULPS,
+         bounces=checks, loops=loops,
+         graph_against_eager={k: graph_row[k] for k in ("accum_equal", "u8_equal", "frame_ms",
+                                                        "eager_frame_ms", "launches")},
+         launches=counts, timing=timing)
+    spills = [ln for ln in ptxas if re.search(r"[1-9]\d* bytes spill", ln)]
+    if spills:
+        fail(f"shade: the kernel spills: {spills}")
+    # the kernels line: the frame cell's scene, bounce 0
+    t = next(row for row in timing if row["scene"] == "sphere" and row["bounce"] == 0)
+    common = dict(route="cuda", source="polaris_tpu_torch/csrc/shade.cu", replaces=None,
+                  n_rays=t["lanes"], rays=f"sphere {SHADE_TIME_FRAME}x{SHADE_TIME_FRAME} bounce 0",
+                  mismatched_lanes=0, bound_by="bytes")
+    return [
+        dict(common, name="shade_bounce", kernel="S", launches=counts["frame"]["shade_bounce"],
+             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+             share_of_bound=t["share_of_bound"], **attrs),
+        dict(common, name="nee_add", kernel="S", launches=counts["frame"]["nee_add"],
+             ms=t["nee_add_ms"], plain_ms=t["nee_add_plain_ms"], bound_ms=t["nee_add_bound_ms"],
+             share_of_bound=t["nee_add_share_of_bound"]),
+    ]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2475,7 +2775,8 @@ def main() -> int:
     from polaris_tpu_torch import native
     from polaris_tpu_torch.asset.compiler.compiler import compile_scene
     from polaris_tpu_torch.asset.procedural import make_terrain_scene
-    from polaris_tpu_torch.ops import _build, _launch
+    from polaris_tpu_torch.ops import _build, _launch, shade_cuda
+    from polaris_tpu_torch.render.shade_check import coverage_scene
 
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2487,11 +2788,12 @@ def main() -> int:
         kind=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
     )
 
-    sources = [module_of(fam).SOURCE for fam in FAMILIES]
+    sources = [module_of(fam).SOURCE for fam in FAMILIES] + [shade_cuda.SOURCE]
     t0 = time.perf_counter()
     seconds = _build.build_libraries(sources, _launch.EXTRA_FLAGS)
     for fam in FAMILIES:
         module_of(fam).load()
+    shade_cuda.load()
     emit("build", seconds=time.perf_counter() - t0, seconds_each=seconds,
          flags=list(_launch.EXTRA_FLAGS))
 
@@ -2505,6 +2807,7 @@ def main() -> int:
         ("cornell", lambda: load_scene("cornell")),
         ("mitsuba", lambda: load_scene("mitsuba")),
         ("dispersive", lambda: load_scene("dispersive")),
+        ("coverage", lambda: coverage_scene(os.path.join(HERE, "scenes"))),
         ("terrain20k", lambda: compile_scene(make_terrain_scene(grid=100))),
         ("terrain80k", lambda: compile_scene(make_terrain_scene(grid=200))),
         ("terrain320k", lambda: compile_scene(make_terrain_scene(grid=STREAM_GRID))),
@@ -2520,7 +2823,7 @@ def main() -> int:
                 name, scenes[name],
                 SMALL_FRAME if name in ("instanced", "cornell") else FRAME,
             )
-            for name in scenes if name != "dispersive"
+            for name in scenes if name not in ("dispersive", "coverage")
         }
         # and the frames of the configurations that are not among these
         for name, width, _, _ in CONFIGS:
@@ -2550,6 +2853,7 @@ def main() -> int:
         # around one frame of the flagship configuration per triangle test
         k1 = phase_configs(scenes, smi)
         launches["K1"] = launches["K1hh"] = k1
+        shade_entries = phase_shade(scenes, smi)
         phase_adaptive(scenes["cornell"], smi)
         phase_grad(scenes, smi)
         phase_denoise(scenes["cornell"], smi)
@@ -2565,6 +2869,7 @@ def main() -> int:
         ]
         if e["launches"] <= 0:
             fail(f"kernel entry point {e['name']} was never launched by a render path")
+    entries.update((e["name"], e) for e in shade_entries)
     emit("total", seconds=time.perf_counter() - t_start)
 
     print(smi, flush=True)

@@ -91,7 +91,7 @@ def _ray_pointers(o, d, maxt, active):
     return n, [o.data_ptr(), d.data_ptr(), maxt.data_ptr(), active.data_ptr()]
 
 
-def _raise_on(err: int, what: str) -> None:
+def raise_on(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: kernel launch failed with CUDA error {err}")
 
@@ -113,7 +113,7 @@ def run_closest(fn, scene_args: Sequence, o, d, maxt, active) -> Hit:
             t.data_ptr(), u.data_ptr(), v.data_ptr(), tri.data_ptr(),
             inst.data_ptr(), found.data_ptr(), stream,
         )
-    _raise_on(err, fn.__name__)
+    raise_on(err, fn.__name__)
     return Hit(t, inst, tri, u, v, found)
 
 
@@ -124,7 +124,7 @@ def run_any(fn, scene_args: Sequence, o, d, maxt, active) -> torch.Tensor:
     with torch.cuda.device(o.device), torch.profiler.record_function(fn.__name__):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(*scene_args, n, *rays, found.data_ptr(), stream)
-    _raise_on(err, fn.__name__)
+    raise_on(err, fn.__name__)
     return found
 
 
@@ -173,19 +173,20 @@ def packed_pointers(P: Dict, spec, device):
 
 
 def launch_tables():
-    """The ``LAUNCHES`` table of every kernel module (K1, K5, K3, K4, K2), in
-    one fixed order: what a CUDA graph's capture reads to learn the launches
-    one replay makes."""
+    """The ``LAUNCHES`` table of every kernel module (K1, K5, K3, K4, K2, the
+    shading kernel), in one fixed order: what a CUDA graph's capture reads to
+    learn the launches one replay makes."""
     from . import (
         intersect_cuda,
         intersect_dense,
         intersect_nodes,
         intersect_wide8,
         intersect_wide8_nodes,
+        shade_cuda,
     )
 
     return [
         m.LAUNCHES
         for m in (intersect_cuda, intersect_dense, intersect_nodes, intersect_wide8,
-                  intersect_wide8_nodes)
+                  intersect_wide8_nodes, shade_cuda)
     ]

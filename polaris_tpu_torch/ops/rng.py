@@ -91,6 +91,10 @@ def make_uniform(seed, pixel_idx, sample_idx, bounce, rr_key=None):
 
     The mix of (seed, key, sample) is the same for every stream, so it is
     folded once per key and reused; a draw then costs one more mixing round.
+
+    The closure carries its counters as ``U.counters`` (a dict with the keys
+    ``seed``, ``pixel``, ``sample``, ``bounce``, ``rr_key``), from which the
+    shading kernel (ops/shade_cuda.py) makes the same draws.
     """
     prefix = {}
 
@@ -102,6 +106,9 @@ def make_uniform(seed, pixel_idx, sample_idx, bounce, rr_key=None):
         acc = _fold(prefix[by_block], (bounce * 64 + stream,))
         return _to_unit_float(hash_u32(acc))
 
+    U.counters = dict(
+        seed=seed, pixel=pixel_idx, sample=sample_idx, bounce=bounce, rr_key=rr_key
+    )
     return U
 
 

@@ -8,8 +8,9 @@ wrapped), and the 3-tap bump-to-normal reconstruction, over three storage
 kinds (``tex_store``): 0 float32 RGBA in ``tex_data``, 1 Rgba8 and
 2 Luminance8 in ``tex_data_u8``. A scene may mix them.
 
-No kernel is involved on either side: the JAX module is plain array code, and
-so is this one.
+The JAX module is plain array code, and so is this one; on a card the
+shading kernel samples the atlas itself (``csrc/shade_texture.cuh``, the
+same arithmetic), and this module is its plain version.
 
 What is carried over is the arithmetic, expression for expression:
 ``su = (u - floor(u)) * w``, the truncating cast and the clip to

@@ -4,11 +4,12 @@ Counterpart of the JAX package's ``render/integrator.py`` (itself the
 counterpart of the reference's host-driven pipeline,
 ``tracer/opencl/pipeline.go:94-213`` + ``tracer/opencl/tracer.go:194-247``).
 Raygen, traversal (the CUDA kernel on a card, the plain PyTorch traversal on
-the CPU), shading, NEE occlusion and accumulation are tensor ops over
-fixed-shape lanes, ray i <-> pixel i throughout, so the accumulator update
-is a lanewise add (no scatter). The RNG is counter-based (ops/rng.py), which
-makes the image independent of lane order and of how the samples are
-chunked into launches.
+the CPU), shading (one CUDA kernel a bounce on a card, ``ops/shade_cuda.py``;
+its plain PyTorch version on the CPU and wherever autograd records it), NEE
+occlusion and accumulation run over fixed-shape lanes, ray i <-> pixel i
+throughout, so the accumulator update is a lanewise add (no scatter). The
+RNG is counter-based (ops/rng.py), which makes the image independent of lane
+order and of how the samples are chunked into launches.
 
 The loops exist twice over the same bodies. The eager functions
 (``render_sample_block``, ``render_band_eager``, ``render_block_regen``
@@ -33,7 +34,7 @@ import numpy as np
 import torch
 
 from ..asset.camera import Camera
-from ..ops import rng
+from ..ops import rng, shade_cuda
 from ..ops import vec as V
 from ..ops.intersect import Hit, make_intersectors
 from ..ops.material import material_tree_depth
@@ -42,7 +43,7 @@ from ..utils.log import Timer, get_logger
 from .graph import Step
 from .options import RenderOptions
 from .raygen import gen_rays
-from .shade import shade, shade_miss, tonemap_reinhard
+from .shade import nee_add_plain, shade_bounce_plain, tonemap_reinhard
 
 _log = get_logger("integrator")
 
@@ -160,36 +161,27 @@ def _trace_bounce(
     scene_diffuse_mat, material_depth, compact: bool = False,
 ):
     """One closest-hit + shade + NEE-occlusion pass over all lanes — the body
-    both sample loops share. Returns (radiance, shade-output dict).
+    every sample loop shares. Returns (radiance, shade-output dict).
     ``compact`` packs the shadow rays into the leading lanes for the any-hit
-    pass and maps the verdicts back."""
-    hit = closest(
-        S, ray_o.detach().contiguous(), ray_d.detach().contiguous(), maxt, alive
+    pass and maps the verdicts back.
+
+    The shading runs in the kernel of ``ops/shade_cuda.py`` on a card, unless
+    autograd records the call (``shade_cuda.takes_kernel``), and as
+    ``shade_bounce_plain`` / ``nee_add_plain`` otherwise (render/shade.py):
+    the kernel's plain version, and the differentiable path of the loss."""
+    o, d = ray_o.detach().contiguous(), ray_d.detach().contiguous()
+    hit = closest(S, o, d, maxt, alive)
+    kernel = shade_cuda.takes_kernel(S, ray_o, ray_d, throughput, radiance)
+    if kernel:
+        shade_fn, add_fn, ray_o, ray_d = shade_cuda.shade_bounce, shade_cuda.nee_add, o, d
+    else:
+        shade_fn, add_fn = shade_bounce_plain, nee_add_plain
+    radiance, out = shade_fn(
+        S, hit, ray_o=ray_o, ray_d=ray_d, alive=alive, throughput=throughput, flags=flags,
+        radiance=radiance, U=U, bounce=bounce, is_primary=is_primary,
+        min_bounces_for_rr=min_bounces_for_rr, num_emissives=num_emissives,
+        scene_diffuse_mat=scene_diffuse_mat, material_depth=material_depth,
     )
-    t = torch.where(hit.mask, hit.t, 0.0)
-    if scene_diffuse_mat >= 0:
-        miss = alive & (~hit.mask)
-        bg = shade_miss(S, ray_d, throughput, is_primary, scene_diffuse_mat)
-        radiance = radiance + torch.where(miss[..., None], bg, 0.0)
-    out = shade(
-        S,
-        U,
-        bounce=bounce,
-        min_bounces_for_rr=min_bounces_for_rr,
-        num_emissives=num_emissives,
-        material_depth=material_depth,
-        ray_o=ray_o,
-        ray_d=ray_d,
-        t=t,
-        inst=hit.inst,
-        tri=hit.tri,
-        bary_u=hit.u,
-        bary_v=hit.v,
-        hit_mask=hit.mask,
-        throughput=throughput,
-        flags=flags,
-    )
-    radiance = radiance + out["emit_add"]
     if num_emissives > 0:
         om = out["occl_mask"]
         rays = (out["occl_o"].detach(), out["occl_d"].detach(), out["occl_maxt"].detach(), om)
@@ -200,8 +192,7 @@ def _trace_bounce(
             occluded = _take(any_hit(S, *(_take(x, oinv) for x in rays)), opos)
         else:
             occluded = any_hit(S, *(x.contiguous() for x in rays))
-        nee = om & (~occluded)
-        radiance = radiance + torch.where(nee[..., None], out["occl_value"], 0.0)
+        radiance = add_fn(radiance, om, occluded, out["occl_value"])
     return radiance, out
 
 

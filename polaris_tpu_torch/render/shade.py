@@ -1,4 +1,6 @@
-"""The per-bounce shading megastep (PyTorch).
+"""The per-bounce shading megastep (PyTorch): the plain version of the
+shading kernel (``ops/shade_cuda.py``, ``csrc/shade.cu``), and the
+differentiable path of the loss.
 
 Counterpart of the reference's ``shadeHits`` mega-kernel
 (``CL/kernels/pt_integrator.cl:17-211``) plus the miss-shading kernels
@@ -233,6 +235,51 @@ def shade_miss(S, ray_d, throughput, is_primary, scene_diffuse_mat: int):
     if isinstance(is_primary, bool):
         return kd if is_primary else throughput * kd
     return torch.where(is_primary, kd, throughput * kd)
+
+
+def shade_bounce_plain(
+    S, hit, *, ray_o, ray_d, alive, throughput, flags, radiance, U, bounce, is_primary,
+    min_bounces_for_rr, num_emissives, scene_diffuse_mat, material_depth,
+):
+    """The shading of one bounce after its closest hits ``hit``: the miss
+    background (when the scene has one) and the emission of hits added to
+    ``radiance``, and ``shade``'s dict. Returns ``(radiance, out)``.
+
+    The plain version of ``ops/shade_cuda.py::shade_bounce`` (same arguments,
+    same results), and the differentiable path: ``render/integrator.py::
+    _trace_bounce`` runs it where the kernel does not (the CPU, and calls
+    that autograd records)."""
+    t = torch.where(hit.mask, hit.t, 0.0)
+    if scene_diffuse_mat >= 0:
+        miss = alive & (~hit.mask)
+        bg = shade_miss(S, ray_d, throughput, is_primary, scene_diffuse_mat)
+        radiance = radiance + torch.where(miss[..., None], bg, 0.0)
+    out = shade(
+        S,
+        U,
+        bounce=bounce,
+        min_bounces_for_rr=min_bounces_for_rr,
+        num_emissives=num_emissives,
+        material_depth=material_depth,
+        ray_o=ray_o,
+        ray_d=ray_d,
+        t=t,
+        inst=hit.inst,
+        tri=hit.tri,
+        bary_u=hit.u,
+        bary_v=hit.v,
+        hit_mask=hit.mask,
+        throughput=throughput,
+        flags=flags,
+    )
+    return radiance + out["emit_add"], out
+
+
+def nee_add_plain(radiance, occl_mask, occluded, occl_value):
+    """``radiance`` plus the NEE value of every shadow ray that reached its
+    light: the plain version of ``ops/shade_cuda.py::nee_add``."""
+    nee = occl_mask & (~occluded)
+    return radiance + torch.where(nee[..., None], occl_value, 0.0)
 
 
 def tonemap_reinhard(accum, sample_weight, exposure):

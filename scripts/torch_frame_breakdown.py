@@ -28,9 +28,9 @@ object:
   profile_eager  the same for one eager frame
   layers      one eager frame with a device synchronisation around every
               layer (raygen, closest hit, shade, any hit): serialised ms per
-              layer, calls, and what is left for RNG and loop bookkeeping;
-              and, in a second such frame, the atlas fetches inside shade
-              (``texture_fetch``: every call of the sampler's corner gather)
+              layer, calls, and what is left for RNG and loop bookkeeping
+              (shade is one launch of the shading kernel a bounce, atlas
+              fetches included)
   loop_sync   latency of the stop test ``bool(alive.any())`` on an idle
               device, and that latency times the graph frame's host syncs
 
@@ -135,6 +135,7 @@ def measure_profile(frame, trips: int) -> dict:
 
 def measure_layers(renderer, opt) -> dict:
     """One eager frame with every layer fenced by device synchronisations."""
+    from polaris_tpu_torch.ops import shade_cuda
     from polaris_tpu_torch.render import integrator
 
     spent = {"raygen": [0.0, 0], "closest_hit": [0.0, 0], "shade": [0.0, 0],
@@ -152,34 +153,20 @@ def measure_layers(renderer, opt) -> dict:
 
         return run
 
-    saved = (integrator.gen_rays, integrator.shade, renderer.closest, renderer.any_hit)
+    # a frame's bounces shade in the kernel of ops/shade_cuda.py on a card
+    saved = (integrator.gen_rays, shade_cuda.shade_bounce, renderer.closest, renderer.any_hit)
     integrator.gen_rays = fenced("raygen", saved[0])
-    integrator.shade = fenced("shade", saved[1])
+    shade_cuda.shade_bounce = fenced("shade", saved[1])
     renderer.closest = fenced("closest_hit", saved[2])
     renderer.any_hit = fenced("any_hit", saved[3])
     try:
         total = _timed_eager_frame(renderer, opt)
     finally:
-        integrator.gen_rays, integrator.shade, renderer.closest, renderer.any_hit = saved
+        integrator.gen_rays, shade_cuda.shade_bounce, renderer.closest, renderer.any_hit = saved
     layers = {k: {"ms": v[0], "calls": v[1]} for k, v in spent.items()}
     layers["rng_and_bookkeeping"] = {"ms": total - sum(v[0] for v in spent.values())}
     layers["serialised_frame_ms"] = total
 
-    # the atlas fetches, which happen inside shade: a frame of their own, so
-    # that their fences do not count into the layers above
-    from polaris_tpu_torch.ops import texture
-
-    spent["texture_fetch"] = [0.0, 0]
-    saved_fetch = texture._corners
-    texture._corners = fenced("texture_fetch", saved_fetch)
-    try:
-        fetch_frame = _timed_eager_frame(renderer, opt)
-    finally:
-        texture._corners = saved_fetch
-    layers["texture_fetch"] = {
-        "ms": spent["texture_fetch"][0], "calls": spent["texture_fetch"][1],
-        "frame_ms_with_these_fences": fetch_frame,
-    }
     return layers
 
 
