@@ -1,7 +1,9 @@
 """Readings that the cells' limits are set from: for each seed, the numbers
 the check compares for the renderer under test (as a run computes them) and
 for the control, the reference computed in bfloat16 put in the renderer's
-place, each against the float32 reference.
+place, each against the float32 reference. The reference is the
+configuration's (`harness/scenes.py::reference`), read through the drivers'
+`reference_u8` and `reference_steps`, as a run's check reads it.
 
     python benchmark/control.py --workload <cell> --seeds 11,12,13 [--program 0|1] [--control 0|1]
                                 [--fault 0|1] [--window <steps>]

@@ -8,7 +8,8 @@ which builds the kernels and captures the graphs of this shape.
 
 The check: a sample of frames of the window and of pixels, both drawn from
 the seed (the cell's `check.frames` and `check.pixels`), rendered again by
-the reference (`reference/pathtracer.py`) from the same scene files and
+the configuration's reference (`scenes.reference`: `reference/pathtracer.py`
+unless the configuration names another) from the same scene files and
 seeds, and compared as u8 images.
 """
 
@@ -79,18 +80,17 @@ class Driver:
 def reference_u8(ctx, opt, frame_seeds, pixels, dtype) -> np.ndarray:
     """[F, n, 3] u8 levels (int64) of ``pixels`` in the frames of
     ``frame_seeds``, from the reference computed in ``dtype``."""
-    from reference.pathtracer import Integrator, RefRenderer, to_u8
     from roofline.bvh import build
 
     cfg = ctx.cell.config
-    rs = scenes.reference_scene(cfg)
-    ref = RefRenderer(rs, build(rs.v0, rs.e1, rs.e2), ctx.device, dtype)
-    integ = Integrator(cfg["num_bounces"], cfg["min_bounces_for_rr"], cfg["exposure"])
+    mod, rs = scenes.reference(cfg)
+    ref = mod.RefRenderer(rs, build(rs.v0, rs.e1, rs.e2), ctx.device, dtype)
+    integ = mod.Integrator(cfg["num_bounces"], cfg["min_bounces_for_rr"], cfg["exposure"])
     pix = torch.from_numpy(pixels).to(ctx.device)
     # every frame as one batch of lanes: a walk of the BVH lasts as long as
     # its deepest ray, so more lanes cost little more time
     acc = ref.render_frames(frame_seeds, pix, opt.width, opt.height, opt.spp, integ)
-    return to_u8(acc.float(), opt.spp, opt.exposure).cpu().numpy().astype(np.int64)
+    return mod.to_u8(acc.float(), opt.spp, opt.exposure).cpu().numpy().astype(np.int64)
 
 
 def compare(got: np.ndarray, want: np.ndarray, limits: dict):

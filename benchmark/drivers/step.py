@@ -109,19 +109,18 @@ def _first_grad_norm(state: dict) -> float:
 
 
 def reference_steps(ctx, opt, target, steps: int, dtype, program=None, at_step: int = 0) -> dict:
-    """The reference's losses, first gradients and changes over ``steps``
-    steps of Adam (optax's arithmetic) with the trainer's projection, from
-    the scene's materials or from the program's leaves (``program``, as
-    `after_window` keeps them), the first step at the seed of step
-    ``at_step``."""
+    """The configuration's reference's (`scenes.reference`) losses, first
+    gradients and changes over ``steps`` steps of Adam (optax's arithmetic)
+    with the trainer's projection, from the scene's materials or from the
+    program's leaves (``program``, as `after_window` keeps them), the first
+    step at the seed of step ``at_step``."""
     from reference.adam import Adam, project
-    from reference.pathtracer import Integrator, RefRenderer
     from roofline.bvh import build
 
     cfg, trf = ctx.cell.config, ctx.cell.traffic
-    rs = scenes.reference_scene(cfg)
-    ref = RefRenderer(rs, build(rs.v0, rs.e1, rs.e2), ctx.device, dtype)
-    integ = Integrator(cfg["num_bounces"], cfg["min_bounces_for_rr"], cfg["exposure"])
+    mod, rs = scenes.reference(cfg)
+    ref = mod.RefRenderer(rs, build(rs.v0, rs.e1, rs.e2), ctx.device, dtype)
+    integ = mod.Integrator(cfg["num_bounces"], cfg["min_bounces_for_rr"], cfg["exposure"])
     P = ref.params(requires_grad=True)
     if program is not None:
         rows = _rows(program["start"], P)

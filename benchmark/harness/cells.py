@@ -7,6 +7,43 @@ of its output check. A configuration is `configs/<config>.json`; a traffic
 mix is `traffic/<traffic>.json`, whose `driver` names `drivers/<driver>.py`;
 a per-layer metric is read by `metrics/<metric>.py`. Adding any of them
 adds a file and an entry, and edits none.
+
+A configuration names its plain reference: `"reference": "<module>"` is the
+module `reference/<module>.py`, imported as `reference.<module>` (so it may
+import its siblings, as `from .pathtracer import ...`); without the key it
+is `pathtracer`. `scenes.reference(config)` gives the module and its scene,
+and every reader of the reference goes through it: the frame driver's
+`reference_u8` (the frame check and `control.py`), the step driver's
+`reference_steps` (the step check and `control.py`) and the traversal
+roofline's probe (`metrics/traversal_roofline_pct.frame.py`). A
+configuration whose scene `pathtracer` cannot render brings a module of its
+own; the `frame` driver and its traffic serve it unchanged. The module
+exports what those readers use, and the harness uses nothing more:
+
+- `load_scene(config, bench_dir)`: the configuration's scene, its files
+  named under ``bench_dir`` (the harness's `BENCH_DIR`, where the program's
+  scene is read too). The harness reads of it
+  `v0`, `e1`, `e2` (float32 (T, 3): each triangle's first vertex and its
+  two edges, which `roofline/bvh.py::build` and the roofline's walk take),
+  `num_tris`, and the camera: `eye` (float32 (3,)) and `frustum(width,
+  height)` (float32 (4, 3), the corner rays TL, TR, BL, BR minus the eye).
+  The materials and the light table (in `pathtracer`, `light_tri` and
+  `light_area`, the emissive triangles) are read by the module's own
+  `RefRenderer` alone, in whatever form it keeps them.
+- `Integrator(num_bounces, min_bounces_for_rr, exposure)`.
+- `RefRenderer(scene, bvh, device, dtype)`, ``bvh`` being
+  `roofline/bvh.py::build(v0, e1, e2)` and ``dtype`` float32 (the
+  reference) or bfloat16 (the control), with
+  `render_frames(seeds, pix, width, height, spp, integrator)`: the summed
+  radiance [F, n, 3] of ``pix`` in each frame of seed ``seeds[f]``;
+  `params(requires_grad)`: the leaves the step check follows, named as the
+  program's `Trainer.trainable` leaves, every leaf that
+  `reference/adam.py::BOUNDS` names among them (its `project` clamps
+  them); and
+  `loss(P, seed, target, width, height, spp, integrator)`.
+- `to_u8(accum, spp, exposure)`: the u8 frame of a summed radiance.
+- `primary_rays(seed, pix, px, py, s, width, height, frustum, eye, dtype)`:
+  the (origins, directions) of sample ``s`` of pixels ``pix``.
 """
 
 from __future__ import annotations

@@ -3,7 +3,9 @@
 A configuration names its scene one of two ways: `{"obj": "<file under
 benchmark/>"}`, a Wavefront file the benchmark keeps its own copy of, or
 `{"terrain_grid": g}`, the heightfield of `reference/scene.py::terrain`.
-The renderer under test gets the scene through its public asset pipeline
+The reference reads it with its own module's `load_scene` (`reference`;
+`cells.py` says what a reference module exports). The renderer under test
+gets the scene through its public asset pipeline
 (`read_scene`, or the raw-scene types of `asset/input_scene.py`, then
 `compile_scene`). A generated scene is compiled once per checkout, as users
 compile a scene and render from the artifact: the compiled scene is kept
@@ -16,6 +18,7 @@ the native BVH builder among them), and later runs load it
 from __future__ import annotations
 
 import hashlib
+import importlib
 import json
 import os
 
@@ -26,13 +29,28 @@ from . import cells
 CACHE = os.path.join(cells.BENCH_DIR, ".cache")
 
 
-def reference_scene(config: dict):
-    from reference.scene import read_obj, terrain_scene
+DEFAULT_REFERENCE = "pathtracer"
 
-    spec = config["scene"]
-    if "obj" in spec:
-        return read_obj(os.path.join(cells.BENCH_DIR, spec["obj"]))
-    return terrain_scene(int(spec["terrain_grid"]))
+
+def reference(config: dict):
+    """``(module, scene)``: the plain reference that ``config`` names, the
+    module `reference/<config["reference"]>.py` (`pathtracer` without the
+    key; `cells.py` says what it exports), and its scene of ``config``, whose
+    files it reads under `cells.BENCH_DIR`, as `program_scene` does."""
+    name = config.get("reference", DEFAULT_REFERENCE)
+    if not (isinstance(name, str) and name.isidentifier()):
+        raise ValueError(f"configuration {config.get('name')!r}: {name!r} names no reference module")
+    qualified = f"reference.{name}"
+    try:
+        mod = importlib.import_module(qualified)
+    except ModuleNotFoundError as e:
+        if e.name != qualified:  # the module itself is there and lacks an import
+            raise
+        raise ModuleNotFoundError(
+            f"configuration {config.get('name')!r} names the reference module {name!r}, "
+            f"and there is no benchmark/reference/{name}.py", name=qualified,
+        ) from None
+    return mod, mod.load_scene(config, cells.BENCH_DIR)
 
 
 def _raw_terrain(grid: int):

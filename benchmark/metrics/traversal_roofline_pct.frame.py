@@ -2,7 +2,8 @@
 over the benchmark's own BVH, divided by the time of the renderer's
 closest-hit intersector for the cell's mode (`ops/intersect.py::
 make_intersectors` on the renderer's uploaded scene), on the frame's primary rays
-and on as many bounce rays from the scene's surfaces (`roofline/probe.py`).
+and on as many bounce rays from the scene's surfaces (`roofline/probe.py`),
+both made on the configuration's reference scene (`scenes.reference`).
 Measured after the window, on the card only."""
 
 import sys
@@ -20,8 +21,7 @@ def read(r):
     S = r.driver.renderer.S
     closest, _ = make_intersectors(S, cfg["mode"], None)
     out = traversal_roofline(
-        scenes.reference_scene(cfg), closest, S, trf["width"], trf["height"], r.ctx.seed,
-        r.ctx.device,
+        *scenes.reference(cfg), closest, S, trf["width"], trf["height"], r.ctx.seed, r.ctx.device,
     )
     print(f"traversal roofline {out}", file=sys.stderr)
     return out["pct"]

@@ -13,13 +13,17 @@ sees the same draws. Intersection is its own: the benchmark's BVH
 (`roofline/bvh.py`) walked by `roofline/traverse.py`, with the quotient
 Moller-Trumbore test.
 
-Every float tensor is of `dtype`: float32 is the reference, bfloat16 the
-control. The material rows (`reflectance`, `radiance`, `scale`) may carry
-gradients; hit geometry and discrete choices do not.
+It is the reference of every configuration that names no other, and
+exports what `harness/cells.py` asks of a reference module; `load_scene`
+reads the scene with `scene.py`. Every float tensor is of `dtype`: float32
+is the reference, bfloat16 the control. The material rows (`reflectance`,
+`radiance`, `scale`) may carry gradients; hit geometry and discrete choices
+do not.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Dict, Optional
 
@@ -30,7 +34,7 @@ from roofline.bvh import Bvh
 from roofline.traverse import FLT_MAX, Traverser, cross3, dot3
 
 from . import rng
-from .scene import EMISSIVE, RefScene
+from .scene import EMISSIVE, RefScene, read_obj, terrain_scene
 
 PI = 3.14159265358979323846
 INV_PI = 1.0 / PI
@@ -124,6 +128,15 @@ def primary_rays(seed, pix, px, py, s, width, height, frustum, eye, dtype):
     right = tr[None, :] + (br - tr)[None, :] * ty[..., None]
     d = normalize3(left + (right - left) * tx[..., None])
     return eye.expand_as(d).contiguous(), d
+
+
+def load_scene(config: dict, bench_dir: str) -> RefScene:
+    """The scene of a configuration: its `.obj` under ``bench_dir``, or the
+    terrain of ``terrain_grid`` cells a side (`scene.py`)."""
+    spec = config["scene"]
+    if "obj" in spec:
+        return read_obj(os.path.join(bench_dir, spec["obj"]))
+    return terrain_scene(int(spec["terrain_grid"]))
 
 
 class RefRenderer:

@@ -24,16 +24,17 @@ from .traverse import FLT_MAX, Traverser
 REPEATS = 10
 
 
-def probe_rays(rs, width: int, height: int, seed: int, device):
-    """[(origin, direction)] of the two probe sets, float32 on ``device``."""
+def probe_rays(ref, rs, width: int, height: int, seed: int, device):
+    """[(origin, direction)] of the two probe sets, float32 on ``device``,
+    on the scene ``rs`` of the reference module ``ref`` (its camera and
+    `primary_rays`)."""
     from harness import seeds
-    from reference.pathtracer import primary_rays
 
     n = width * height
     pix = torch.arange(n, device=device)
     frustum = torch.from_numpy(rs.frustum(width, height)).to(device)
     eye = torch.from_numpy(rs.eye).to(device)
-    prim = primary_rays(seeds.derive(seed, seeds.PROBE), pix, pix % width, pix // width,
+    prim = ref.primary_rays(seeds.derive(seed, seeds.PROBE), pix, pix % width, pix // width,
                         torch.zeros_like(pix), width, height, frustum, eye, torch.float32)
 
     g = seeds.generator(seed, seeds.PROBE)
@@ -74,13 +75,14 @@ def _time_s(fn, repeats: int = REPEATS) -> float:
     return start.elapsed_time(end) * 1e-3 / repeats
 
 
-def traversal_roofline(rs, closest, S, width: int, height: int, seed: int, device) -> dict:
+def traversal_roofline(ref, rs, closest, S, width: int, height: int, seed: int, device) -> dict:
     """Share (%) of the bound in the time of ``closest(S, o, d, maxt,
-    active)`` on the probe rays, with its parts."""
+    active)`` on the probe rays of the reference ``ref`` and its scene
+    ``rs``, with its parts."""
     walk = Traverser(build(rs.v0, rs.e1, rs.e2), rs.v0, rs.e1, rs.e2, device)
     total_bound = total_time = 0.0
     parts = {}
-    for name, (o, d) in probe_rays(rs, width, height, seed, device):
+    for name, (o, d) in probe_rays(ref, rs, width, height, seed, device):
         n = o.shape[0]
         maxt = torch.full((n,), FLT_MAX, dtype=torch.float32, device=device)
         active = torch.ones(n, dtype=torch.bool, device=device)
