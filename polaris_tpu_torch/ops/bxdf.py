@@ -138,6 +138,26 @@ def _eta_swapped(mat, i_dot_n):
     return eta_i, eta_t
 
 
+def dielectric_split(mat, i_dot_n, u1):
+    """A dielectric's lobe at ``i_dot_n``: ``(eta_i, eta_t, eta, fresnel,
+    cos_t_sq, tir, pick_reflect)``, the IORs swapped from inside, Snell's
+    cos^2 of the refracted angle, total internal reflection, and the
+    reflection that ``u1 <= fresnel`` (or TIR) picks (dielectric.cl:18-40,
+    rough_dielectric.cl:20-45)."""
+    eta_i, eta_t = _eta_swapped(mat, i_dot_n)
+    eta = eta_i / torch.where(eta_t == 0.0, 1.0, eta_t)
+    f_diel = V.fresnel_dielectric(eta_i, eta_t, i_dot_n)
+    # Snell: cos^2(theta_t) = 1 - eta^2 (1 - cos^2(theta_i)). The
+    # reference uses eta instead of eta^2 (dielectric.cl:31,
+    # rough_dielectric.cl:36), bending refractions at the wrong angle AND
+    # leaving the refracted direction unnormalized — not replicated
+    # (docs/parity.md).
+    cos_t_sq = 1.0 + eta * eta * (i_dot_n * i_dot_n - 1.0)
+    tir = cos_t_sq <= 0.0
+    pick_reflect = tir | (u1 <= f_diel)
+    return eta_i, eta_t, eta, f_diel, cos_t_sq, tir, pick_reflect
+
+
 # ---------------------------------------------------------------- sample
 
 
@@ -199,17 +219,9 @@ def bxdf_sample(S, mat, normal, uv, in_dir, u1, u2):
 
     # --- dielectric (dielectric.cl:13-47)
     if DIEL or RD:
-        eta_i, eta_t = _eta_swapped(mat, i_dot_n)
-        eta = eta_i / torch.where(eta_t == 0.0, 1.0, eta_t)
-        f_diel = V.fresnel_dielectric(eta_i, eta_t, i_dot_n)
-        # Snell: cos^2(theta_t) = 1 - eta^2 (1 - cos^2(theta_i)). The
-        # reference uses eta instead of eta^2 (dielectric.cl:31,
-        # rough_dielectric.cl:36), bending refractions at the wrong angle AND
-        # leaving the refracted direction unnormalized — not replicated
-        # (docs/parity.md).
-        cos_t_sq = 1.0 + eta * eta * (i_dot_n * i_dot_n - 1.0)
-        tir = cos_t_sq <= 0.0
-        pick_reflect = tir | (u1 <= f_diel)
+        eta_i, eta_t, eta, f_diel, cos_t_sq, tir, pick_reflect = dielectric_split(
+            mat, i_dot_n, u1
+        )
         sgn = torch.sign(i_dot_n)
         # sqrt floored at 1e-12: at exactly 0 (TIR boundary) the chain rule
         # yields 0*inf = NaN for IOR gradients

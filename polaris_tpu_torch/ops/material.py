@@ -98,7 +98,8 @@ def material_tree_depth(mat_type, mat_left, mat_right) -> int:
     return int(depth.max()) if m else 0
 
 
-def select_material(S, U, root_idx, normal, uv, flags, max_depth=MAX_MATERIAL_DEPTH):
+def select_material(S, U, root_idx, normal, uv, flags, max_depth=MAX_MATERIAL_DEPTH,
+                    tex_ops=False):
     """Walk the layered material tree for every lane.
 
     Args:
@@ -111,6 +112,9 @@ def select_material(S, U, root_idx, normal, uv, flags, max_depth=MAX_MATERIAL_DE
     Returns (mat_dict, normal, tint, flags) where mat_dict holds the selected
     leaf fields with dispersion IOR overrides applied
     (material_sampler.cl:91-96: selected IOR = max(node IOR, forced IOR)).
+    ``tex_ops``: also return, last, whether each lane's walk passed a node
+    that samples a texture (mixMap, bumpMap, normalMap), for the shading
+    census (utils/profiling.py).
     """
     from .rng import STREAM_DISPERSE, STREAM_MAT_MIX
 
@@ -125,12 +129,17 @@ def select_material(S, U, root_idx, normal, uv, flags, max_depth=MAX_MATERIAL_DE
     tint = torch.ones_like(normal)
     force_int = torch.zeros(node.shape, dtype=normal.dtype, device=normal.device)
     force_ext = torch.zeros_like(force_int)
+    tex_op = torch.zeros(node.shape, dtype=torch.bool, device=node.device) if tex_ops else None
 
     for level in range(max_depth):
         t = S["mat_type"][node]
         left = S["mat_left"][node].long()
         right = S["mat_right"][node].long()
         is_op = t >= OP_MIX
+        if tex_ops:
+            tex_op = tex_op | (
+                is_op & ((t == OP_MIX_MAP) | (t == OP_BUMP_MAP) | (t == OP_NORMAL_MAP))
+            )
         u = U(STREAM_MAT_MIX + level)
 
         # MIX / MIX_MAP: binary choice
@@ -202,4 +211,6 @@ def select_material(S, U, root_idx, normal, uv, flags, max_depth=MAX_MATERIAL_DE
     if DISPERSE:
         mat["int_ior"] = torch.maximum(mat["int_ior"], force_int)
         mat["ext_ior"] = torch.maximum(mat["ext_ior"], force_ext)
+    if tex_ops:
+        return mat, normal, tint, flags, tex_op
     return mat, normal, tint, flags

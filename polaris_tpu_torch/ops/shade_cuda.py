@@ -45,7 +45,10 @@ a captured graph reads from device memory, so one graph serves every frame)
 or one per lane (path regeneration, ``batch_samples``, ``compact``).
 
 ``LAUNCHES`` counts launches per entry point (``_launch.launch_tables``
-lists it, so graph replays count too).
+lists it, so graph replays count too). Where the shading census is on
+(``utils/profiling.py::shade_census``), ``shade_bounce`` counts the lanes
+with PyTorch operations on its inputs and results after the launch
+(``render/shade.py::take_census``); the kernel itself is the same.
 """
 
 from __future__ import annotations
@@ -304,7 +307,12 @@ def shade_bounce(S: Dict, hit, **kw) -> Tuple[torch.Tensor, Dict]:
         err = fn(ctypes.byref(args), torch.cuda.current_stream().cuda_stream)
     _launch.raise_on(err, fn.__name__)
     _launch.count(LAUNCHES, "shade_bounce")
-    return out.pop("radiance"), out
+    radiance = out.pop("radiance")
+    # the census, where it is on, from the kernel's inputs and results
+    from ..render.shade import take_census
+
+    take_census(S, hit, out, **kw)
+    return radiance, out
 
 
 def nee_add(radiance, occl_mask, occluded, occl_value) -> torch.Tensor:

@@ -21,11 +21,17 @@ import torch
 
 from ..ops import vec as V
 from ..ops.bxdf import (
+    BXDF_CONDUCTOR,
+    BXDF_DIELECTRIC,
+    BXDF_DIFFUSE,
     BXDF_EMISSIVE,
+    BXDF_ROUGH_CONDUCTOR,
+    BXDF_ROUGH_DIELECTRIC,
     BXDF_SINGULAR_MASK,
     bxdf_eval,
     bxdf_pdf,
     bxdf_sample,
+    dielectric_split,
 )
 from ..ops.emissive import emissive_pdf, emissive_sample, emissive_select
 from ..ops.material import MAX_MATERIAL_DEPTH, select_material
@@ -37,7 +43,9 @@ from ..ops.rng import (
     STREAM_LIGHT_V,
     STREAM_RR,
 )
+from ..ops.statics import TEXTURE_FIELDS
 from ..ops.texture import mat_sample3
+from ..utils import profiling
 
 
 def power_heuristic(a, b):
@@ -45,6 +53,39 @@ def power_heuristic(a, b):
     a2 = a * a
     denom = a2 + b * b
     return torch.where(denom > 0.0, a2 / torch.clamp(denom, min=1e-30), 0.0)
+
+
+def surface(S, U, *, inst, tri, bary_u, bary_v, flags, material_depth=None, tex_ops=False):
+    """The shading frame and material of each hit: ``(normal, uv, mat,
+    tint, flags)``, with the walk's ``tex_op`` last when ``tex_ops``
+    (``select_material``)."""
+    # --- surface reconstruction (CL/util/surface.cl surfaceInit) ---
+    w = 1.0 - bary_u - bary_v
+    # per-triangle vertex attributes are stored and fetched as flat rows
+    tn = S["tri_normals"].reshape(-1, 9)[tri.long()]  # (N, 9)
+    n_obj = (
+        w[..., None] * tn[..., 0:3]
+        + bary_u[..., None] * tn[..., 3:6]
+        + bary_v[..., None] * tn[..., 6:9]
+    )
+    # normals transform by w2o^T (inverse-transpose of object->world)
+    w2o = V.take_small(S["inst_w2o"], inst)
+    normal = V.normalize3(V.transform_normal(w2o, n_obj))
+    tuv = S["tri_uvs"].reshape(-1, 6)[tri.long()]  # (N, 6)
+    uv = (
+        w[..., None] * tuv[..., 0:2]
+        + bary_u[..., None] * tuv[..., 2:4]
+        + bary_v[..., None] * tuv[..., 4:6]
+    )
+
+    # --- layered material selection (material_sampler.cl matSelectNode) ---
+    root = S["tri_material"][tri.long()]
+    if material_depth is None:
+        material_depth = MAX_MATERIAL_DEPTH
+    mat, normal, *rest = select_material(
+        S, U, root, normal, uv, flags, max_depth=material_depth, tex_ops=tex_ops
+    )
+    return (normal, uv, mat, *rest)
 
 
 def shade(
@@ -78,33 +119,11 @@ def shade(
     Returns a dict with emissive-hit accumulation, the next indirect ray,
     occlusion-ray + pending NEE sample, and updated path state.
     """
-    # --- surface reconstruction (CL/util/surface.cl surfaceInit) ---
     in_dir = -ray_d  # points away from the surface (pt_integrator.cl:86-89)
     point = ray_o + t[..., None] * ray_d
-    w = 1.0 - bary_u - bary_v
-    # per-triangle vertex attributes are stored and fetched as flat rows
-    tn = S["tri_normals"].reshape(-1, 9)[tri.long()]  # (N, 9)
-    n_obj = (
-        w[..., None] * tn[..., 0:3]
-        + bary_u[..., None] * tn[..., 3:6]
-        + bary_v[..., None] * tn[..., 6:9]
-    )
-    # normals transform by w2o^T (inverse-transpose of object->world)
-    w2o = V.take_small(S["inst_w2o"], inst)
-    normal = V.normalize3(V.transform_normal(w2o, n_obj))
-    tuv = S["tri_uvs"].reshape(-1, 6)[tri.long()]  # (N, 6)
-    uv = (
-        w[..., None] * tuv[..., 0:2]
-        + bary_u[..., None] * tuv[..., 2:4]
-        + bary_v[..., None] * tuv[..., 4:6]
-    )
-
-    # --- layered material selection (material_sampler.cl matSelectNode) ---
-    root = S["tri_material"][tri.long()]
-    if material_depth is None:
-        material_depth = MAX_MATERIAL_DEPTH
-    mat, normal, tint, new_flags = select_material(
-        S, U, root, normal, uv, flags, max_depth=material_depth
+    normal, uv, mat, tint, new_flags = surface(
+        S, U, inst=inst, tri=tri, bary_u=bary_u, bary_v=bary_v, flags=flags,
+        material_depth=material_depth,
     )
     flags = torch.where(hit_mask, new_flags, flags)
 
@@ -272,7 +291,55 @@ def shade_bounce_plain(
         throughput=throughput,
         flags=flags,
     )
-    return radiance + out["emit_add"], out
+    radiance = radiance + out["emit_add"]
+    take_census(S, hit, out, ray_d=ray_d, alive=alive, throughput=throughput, flags=flags, U=U,
+                bounce=bounce, min_bounces_for_rr=min_bounces_for_rr,
+                material_depth=material_depth)
+    return radiance, out
+
+
+def census_lanes(S, hit, out, *, ray_d, alive, throughput, flags, U, bounce,
+                 min_bounces_for_rr, material_depth, **_):
+    """What each lane did in one bounce's shading (``shade_bounce_plain`` or
+    the kernel): bool ``[N, len(CENSUS_KINDS)]`` (utils/profiling.py),
+    worked out from the bounce's inputs and ``out``, its results, the
+    material walk and the draws taken again as ``shade`` takes them."""
+    normal, _, mat, _, _, tex_op = surface(
+        S, U, inst=hit.inst, tri=hit.tri, bary_u=hit.u, bary_v=hit.v, flags=flags,
+        material_depth=material_depth, tex_ops=True,
+    )
+    kind = mat["type"]
+    emitter = hit.mask & (kind == BXDF_EMISSIVE)
+    surf = hit.mask & ~emitter
+    *_, pick_reflect = dielectric_split(mat, V.dot3(-ray_d, normal), U(STREAM_BXDF_U))
+    rough_diel = surf & (kind == BXDF_ROUGH_DIELECTRIC)
+    textured = tex_op
+    for f in TEXTURE_FIELDS:
+        textured = textured | (mat[f + "_tex"] >= 0)
+    rr_on = bounce >= min_bounces_for_rr
+    rr_p = torch.clamp(torch.clamp(V.luminance(throughput), max=0.5), min=0.01)
+    rr_ended = surf & rr_on & ~(rr_p >= U(STREAM_RR))
+    lanes = dict(
+        alive=alive, surface=surf, emitter=emitter, miss=alive & ~hit.mask,
+        diffuse=surf & (kind == BXDF_DIFFUSE), conductor=surf & (kind == BXDF_CONDUCTOR),
+        dielectric=surf & (kind == BXDF_DIELECTRIC),
+        rough_conductor=surf & (kind == BXDF_ROUGH_CONDUCTOR),
+        rough_dielectric_reflect=rough_diel & pick_reflect,
+        rough_dielectric_refract=rough_diel & ~pick_reflect,
+        textured=hit.mask & textured, rr_ended=rr_ended, shadow_rays=out["occl_mask"],
+    )
+    return torch.stack([lanes[k] for k in profiling.CENSUS_KINDS], dim=-1)
+
+
+def take_census(S, hit, out, **kw) -> None:
+    """Count one bounce's lanes into the census that is on
+    (``profiling.shade_census``), in a span ``shade_census``; nothing when it
+    is off. ``kw``: the bounce's arguments (``census_lanes``)."""
+    census = profiling.active_census()
+    if census is None:
+        return
+    with torch.profiler.record_function("shade_census"):
+        census.add(kw["bounce"], census_lanes(S, hit, out, **kw))
 
 
 def nee_add_plain(radiance, occl_mask, occluded, occl_value):
