@@ -113,6 +113,15 @@ printing one JSON line:
             graphs bit-equal to the eager loop, the scene's storage kept;
             5 Adam steps of ``Trainer`` (the loss falls; a checkpoint
             restores into a fresh trainer); the 128-spp headline frame
+  table_grad the parameter tables' gradient kernel (ops/table_grad_cuda.py)
+            against its plain version bit for bit, and two launches
+            bit-equal, on tables of 1 to 1,024 rows and 1 to 300,000 lanes,
+            with its gap to ``index_add_``; ms a call against
+            ``index_add_`` and the byte bound at 262,144 lanes on sphere's
+            table shapes; registers and spills (``-Xptxas -v``); then
+            phase grad's loss step: the kernel's calls a step and no
+            fallback, whether two steps at one seed give every leaf's
+            gradient bit for bit, and the kernels that still scatter
   denoise   cornell 512x512, 16 spp, 4 levels: the replayed guide pass and
             filter (one graph each) against the guides through K1's plain
             version and the filter run op by op, bit for bit, at two cameras
@@ -2766,6 +2775,145 @@ def phase_shade(scenes, smi: str) -> list:
     ]
 
 
+# phase table_grad: the parameter tables' gradient kernel (ops/table_grad_cuda.py)
+TG_LANES = FRAME * FRAME  # one sample's lanes at the loss step's frame
+TG_REPS = 200  # launches a timing: about a loss step's
+# (lanes, rows, width) held against the plain version: the loss step's tables
+# at its lanes, ragged ends, and the largest tables the kernel takes
+TG_CHECKS = ((1, 1, 1), (33, 2, 3), (4097, 17, 1), (TG_LANES, 3, 3), (TG_LANES, 3, 1),
+             (TG_LANES, 2, 3), (TG_LANES, 2, 1), (300_000, 64, 3), (300_000, 1024, 1),
+             (100_003, 1, 1024))
+TG_TIMED = ((3, 3), (3, 1), (2, 3), (2, 1))  # the shapes of sphere's recorded gathers
+TG_LANE_BYTES = 8  # an int64 index; and 4 B a column of gradient
+# a kernel of a backward that adds with atomics, or scatters where it might
+SCATTER_KERNELS = re.compile(r"indexFunc|scatter|index_put|indexing_backward|embedding|atomic",
+                             re.I)
+
+
+def as_bits(x: torch.Tensor) -> torch.Tensor:
+    return x.contiguous().view(torch.int32).cpu()
+
+
+def table_grad_ptxas() -> list:
+    """What the assembler reports for ``csrc/table_grad.cu`` built once more
+    with ``-Xptxas -v``: registers, stack frame and spills per kernel."""
+    from polaris_tpu_torch.ops import _build, table_grad_cuda
+
+    probe = os.path.join(_build.BUILD_DIR, "ptxas_probe_table_grad.so")
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    cmd = [_build._find_nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", probe,
+           os.path.join(_build.CSRC_DIR, table_grad_cuda.SOURCE)]
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    if res.returncode != 0:
+        fail(f"table_grad: nvcc -Xptxas -v failed: {res.stderr}")
+    return [ln.strip() for ln in (res.stdout + res.stderr).splitlines()
+            if re.search(r"Compiling entry|Used \d+ registers|stack frame|spill", ln)]
+
+
+def table_grad_timing(gen) -> list:
+    """Device ms a call of the kernel and of ``index_add_`` (into zeros, as
+    autograd adds) at TG_LANES lanes, on sphere's table shapes, with lanes on
+    random rows and every lane on one; the byte bound (TG_LANE_BYTES and the
+    gradient a lane, over PEAK_BYTES_PER_S)."""
+    from polaris_tpu_torch.ops import table_grad_cuda as TG
+
+    dev = torch.device("cuda")
+    rows_out = []
+    for rows, width in TG_TIMED:
+        g = torch.randn((TG_LANES, width), generator=gen).to(dev)
+        for pattern in ("random", "one_row"):
+            if pattern == "random":
+                idx = torch.randint(0, rows, (TG_LANES,), generator=gen).to(dev)
+            else:
+                idx = torch.zeros(TG_LANES, dtype=torch.long, device=dev)
+            kernel_ms = time_ms(lambda: TG.table_grad(g, idx, rows), TG_REPS)
+            index_add_ms = time_ms(
+                lambda: torch.zeros((rows, width), device=dev).index_add_(0, idx, g), TG_REPS
+            )
+            bound_ms = TG_LANES * (TG_LANE_BYTES + 4 * width) / PEAK_BYTES_PER_S * 1e3
+            rows_out.append({
+                "rows": rows, "width": width, "lanes": TG_LANES, "pattern": pattern,
+                "kernel_ms": kernel_ms, "index_add_ms": index_add_ms,
+                "speedup": index_add_ms / kernel_ms, "bound_ms": bound_ms,
+                "share_of_bound": bound_ms / kernel_ms,
+                "call_ms": call_ms(lambda: TG.table_grad(g, idx, rows), TG_REPS),
+            })
+    TG.reset_launches()
+    return rows_out
+
+
+def phase_table_grad(sphere, smi: str) -> None:
+    """The parameter tables' gradient kernel: registers and spills; the
+    kernel against its plain version bit for bit, and two launches bit-equal,
+    on TG_CHECKS, with its gap to ``index_add_``; ms a call against
+    ``index_add_`` and the byte bound (``table_grad_timing``); then the loss
+    step of phase grad (sphere FRAME^2, GRAD_SPP spp, through its graph): the
+    kernel's calls a step and the fallbacks (none), whether two steps at one
+    seed give every leaf's gradient bit for bit, and the kernels of a traced
+    step that still scatter or add with atomics."""
+    from collections import defaultdict
+
+    from torch.autograd import DeviceType
+
+    from polaris_tpu_torch.ops import table_grad_cuda as TG
+    from polaris_tpu_torch.render.grad import DifferentiableRenderer
+    from polaris_tpu_torch.render.options import RenderOptions
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(19)
+    attrs = TG.attributes()
+    checks = []
+    for n, rows, width in TG_CHECKS:
+        g = torch.randn((n, width), generator=gen)
+        idx = torch.randint(0, rows, (n,), generator=gen)
+        want = TG.table_grad_plain(g, idx, rows)
+        gd, xd = g.to(dev), idx.to(dev)
+        a, b = TG.table_grad(gd, xd, rows), TG.table_grad(gd, xd, rows)
+        ref = torch.zeros((rows, width), device=dev).index_add_(0, xd, gd)
+        scale = torch.zeros((rows, width), device=dev).index_add_(0, xd, gd.abs())
+        row = {"lanes": n, "rows": rows, "width": width,
+               "plain_equal": torch.equal(as_bits(a), as_bits(want)),
+               "runs_equal": torch.equal(as_bits(a), as_bits(b)),
+               "index_add_gap": float(((a - ref).abs() / scale.clamp(min=1e-30)).max())}
+        if not (row["plain_equal"] and row["runs_equal"]):
+            fail(f"table_grad: the kernel differs from its plain version or itself: {row}")
+        checks.append(row)
+    timing = table_grad_timing(gen)
+
+    opt = RenderOptions(width=FRAME, height=FRAME, spp=GRAD_SPP, num_bounces=BOUNCES,
+                        min_bounces_for_rr=RR_AFTER)
+    target = np.zeros((FRAME, FRAME, 3), np.float32)
+    r = DifferentiableRenderer(sphere, mode="auto")
+    r.loss_and_grad(opt, target)  # captures
+    TG.reset_launches()
+    loss_a, grads_a, cam_a = r.loss_and_grad(opt, target)
+    torch.cuda.synchronize()
+    per_step = dict(TG.LAUNCHES)
+    if per_step["table_grad_fallback"] or not per_step["table_grad"]:
+        fail(f"table_grad: a loss step launched {per_step}")
+    loss_b, grads_b, cam_b = r.loss_and_grad(opt, target)
+    a, b = {**grads_a, **cam_a}, {**grads_b, **cam_b}
+    leaves_equal = {k: torch.equal(as_bits(a[k]), as_bits(b[k])) for k in a}
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        r.loss_and_grad(opt, target)
+        torch.cuda.synchronize()
+    scatter = defaultdict(lambda: [0, 0.0])
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and SCATTER_KERNELS.search(e.name):
+            scatter[e.name[:160]][0] += 1
+            scatter[e.name[:160]][1] += (e.time_range.end - e.time_range.start) * 1e-3
+    del r
+    torch.cuda.empty_cache()
+    emit("table_grad", card=smi, attributes=attrs, ptxas=table_grad_ptxas(), checks=checks,
+         timing=timing, step={
+             "scene": "sphere", "frame": f"{FRAME}x{FRAME}x{GRAD_SPP}spp",
+             "launches": per_step, "losses_equal": loss_a == loss_b,
+             "leaves_equal": leaves_equal,
+             "scatter_kernels": {k: {"launches": n, "ms": ms} for k, (n, ms) in scatter.items()},
+         })
+    TG.reset_launches()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2775,7 +2923,7 @@ def main() -> int:
     from polaris_tpu_torch import native
     from polaris_tpu_torch.asset.compiler.compiler import compile_scene
     from polaris_tpu_torch.asset.procedural import make_terrain_scene
-    from polaris_tpu_torch.ops import _build, _launch, shade_cuda
+    from polaris_tpu_torch.ops import _build, _launch, shade_cuda, table_grad_cuda
     from polaris_tpu_torch.render.shade_check import coverage_scene
 
     t_start = time.perf_counter()
@@ -2794,6 +2942,8 @@ def main() -> int:
     for fam in FAMILIES:
         module_of(fam).load()
     shade_cuda.load()
+    seconds.update(_build.build_libraries([table_grad_cuda.SOURCE]))
+    table_grad_cuda.load()
     emit("build", seconds=time.perf_counter() - t0, seconds_each=seconds,
          flags=list(_launch.EXTRA_FLAGS))
 
@@ -2856,6 +3006,7 @@ def main() -> int:
         shade_entries = phase_shade(scenes, smi)
         phase_adaptive(scenes["cornell"], smi)
         phase_grad(scenes, smi)
+        phase_table_grad(scenes["sphere"], smi)
         phase_denoise(scenes["cornell"], smi)
         phase_viewer(scenes, smi)
         phase_parallel(scenes, smi)

@@ -174,8 +174,8 @@ def packed_pointers(P: Dict, spec, device):
 
 def launch_tables():
     """The ``LAUNCHES`` table of every kernel module (K1, K5, K3, K4, K2, the
-    shading kernel), in one fixed order: what a CUDA graph's capture reads to
-    learn the launches one replay makes."""
+    shading kernel, the table gradient), in one fixed order: what a CUDA
+    graph's capture reads to learn the launches one replay makes."""
     from . import (
         intersect_cuda,
         intersect_dense,
@@ -183,10 +183,11 @@ def launch_tables():
         intersect_wide8,
         intersect_wide8_nodes,
         shade_cuda,
+        table_grad_cuda,
     )
 
     return [
         m.LAUNCHES
         for m in (intersect_cuda, intersect_dense, intersect_nodes, intersect_wide8,
-                  intersect_wide8_nodes, shade_cuda)
+                  intersect_wide8_nodes, shade_cuda, table_grad_cuda)
     ]

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from . import table_grad_cuda
+
 PI = 3.14159265358979323846
 INV_PI = 1.0 / PI
 TWO_PI = 2.0 * PI
@@ -38,12 +40,16 @@ def safe_div_abs(num, den, thresh):
 def take_small(table, idx):
     """``table[idx]`` for an index tensor of any integer dtype and shape.
 
-    Through ``index_select``, whose gradient ``index_add_`` sums with
-    atomics: the gradient of ``table[idx]`` sorts the indices and adds each
-    run of equal ones serially, which on a card takes milliseconds a call
-    for a table of a few rows that every lane reads (a material field).
+    Through ``index_select``, not ``table[idx]``, whose gradient
+    (``index_put_``) sorts the indices and adds each run of equal ones
+    serially. ``index_select``'s own gradient, ``index_add_``, adds with
+    atomics, which contend where every lane reads one of a few rows (a
+    material field). So where autograd records the gather of a small float32
+    table on a card, its gradient is summed by ``csrc/table_grad.cu``
+    instead, in a fixed order; every other gather keeps ``index_select`` and
+    its ``index_add_`` (``table_grad_cuda.route``).
     """
-    rows = torch.index_select(table, 0, idx.reshape(-1).long())
+    rows = table_grad_cuda.take(table, idx.reshape(-1).long())
     return rows.reshape(*idx.shape, *table.shape[1:])
 
 
